@@ -1,0 +1,14 @@
+"""PyTorch/CUDA port of scd_resnet_tpu, slice by slice.
+
+The JAX package (``scd_resnet_tpu``) stays the reference; this package
+imports nothing of it, nor of ``jax``/``flax``. Module names mirror the
+JAX package (``ops/``, ``models/``, ``infer/``, ``core/``,
+``train/registry.py``) so each counterpart is easy to find. Tensors are
+NCHW; entry points take an explicit ``device`` and run on CUDA unless
+the caller passes ``device="cpu"``.
+
+Ported so far: slide serving (``python -m scd_resnet_tpu_torch.serve``)
+for the ``centerOffset*`` and ``cornerCPoolRes*`` profiles, with the
+corner-pool running max as a hand-written CUDA kernel
+(``csrc/corner_pool.cu``).
+"""

@@ -1,0 +1,144 @@
+"""Carry the JAX package's trained variables into the port's modules.
+
+``state_dict_from_flax(arch, params, batch_stats)`` takes the flax
+variables as nested dicts of numpy arrays (what the JAX checkpoints
+hold) and returns the port model's state dict, following flax's
+auto-names (``ResNetBackbone_0/Conv_0``, ``BasicBlock_k/BatchNorm_j``,
+``ConvTranspose_j``, ``tl_head/CornerPoolBlock_0/...``). Layouts:
+
+- conv kernels HWIO -> OIHW;
+- flax ``ConvTranspose(4x4, s2, "SAME")`` kernels (kh, kw, in, out) ->
+  ``ConvTranspose2d(k4, s2, p1)`` weights (in, out, kh, kw), flipped
+  spatially;
+- BatchNorm ``scale/bias`` + ``mean/var`` -> ``weight/bias`` +
+  ``running_mean/running_var`` (flax wraps its ``nn.BatchNorm`` in one
+  more ``BatchNorm_0`` scope).
+
+For the ``centerOffset`` family the result carries the reference's names,
+the same dict ``scd_resnet_tpu/core/torch_convert.export_center_net_residual``
+writes.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from scd_resnet_tpu_torch.models.resnet import RESNET_SPEC
+from scd_resnet_tpu_torch.train.registry import get_model_profile
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _tensor(value) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(value)))
+
+
+def _conv(kernel) -> torch.Tensor:
+    return _tensor(np.asarray(kernel).transpose(3, 2, 0, 1))
+
+
+def _deconv(kernel) -> torch.Tensor:
+    return _tensor(np.asarray(kernel)[::-1, ::-1].transpose(2, 3, 0, 1))
+
+
+class _Writer:
+    """Walks one flax subtree (params + batch stats) into ``sd``."""
+
+    def __init__(self, sd: StateDict, params: Mapping, stats: Mapping):
+        self.sd, self.params, self.stats = sd, params, stats
+
+    def sub(self, *path: str) -> "_Writer":
+        params, stats = self.params, self.stats
+        for part in path:
+            params = params[part]
+            stats = stats.get(part, {})
+        return _Writer(self.sd, params, stats)
+
+    def conv(self, key: str, name: str, bias: bool = False) -> None:
+        self.sd[key + ".weight"] = _conv(self.params[name]["kernel"])
+        if bias:
+            self.sd[key + ".bias"] = _tensor(self.params[name]["bias"])
+
+    def bn(self, key: str, name: str) -> None:
+        p = self.params[name]["BatchNorm_0"]
+        s = self.stats[name]["BatchNorm_0"]
+        self.sd[key + ".weight"] = _tensor(p["scale"])
+        self.sd[key + ".bias"] = _tensor(p["bias"])
+        self.sd[key + ".running_mean"] = _tensor(s["mean"])
+        self.sd[key + ".running_var"] = _tensor(s["var"])
+        self.sd[key + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+    def conv_block(self, key: str, name: str) -> None:
+        """layers.ConvBlock: Conv_0 + BatchNorm_0 -> ``.conv``/``.bn``."""
+        block = self.sub(name)
+        block.conv(key + ".conv", "Conv_0")
+        block.bn(key + ".bn", "BatchNorm_0")
+
+
+def _backbone(w: _Writer, prefix: str, num_layers: int) -> None:
+    block, stages = RESNET_SPEC[num_layers]
+    n_convs = 3 if block.expansion != 1 else 2
+    w.conv(prefix + "preprocess.0", "Conv_0")
+    w.bn(prefix + "preprocess.1", "BatchNorm_0")
+    blk = 0
+    for stage_idx, repeats in enumerate(stages):
+        for i in range(repeats):
+            key = "{}layer{}.{}".format(prefix, stage_idx + 1, i)
+            b = w.sub("{}_{}".format(block.__name__, blk))
+            for j in range(n_convs):
+                b.conv("{}.conv{}".format(key, j + 1), "Conv_{}".format(j))
+                b.bn("{}.bn{}".format(key, j + 1), "BatchNorm_{}".format(j))
+            if "Conv_{}".format(n_convs) in b.params:
+                b.conv(key + ".downsample.0", "Conv_{}".format(n_convs))
+                b.bn(key + ".downsample.1", "BatchNorm_{}".format(n_convs))
+            blk += 1
+    for j in range(3):
+        w.sd["{}deconvolutionLayers.{}.weight".format(prefix, 3 * j)] = \
+            _deconv(w.params["ConvTranspose_{}".format(j)]["kernel"])
+        w.bn("{}deconvolutionLayers.{}".format(prefix, 3 * j + 1),
+             "BatchNorm_{}".format(j + 1))
+
+
+def _center_offset(root: _Writer, num_layers: int) -> None:
+    w = root.sub("ResNetBackbone_0")
+    _backbone(w, "", num_layers)
+    for head in ("heatmap", "regr", "offset"):
+        h = w.sub(head)
+        h.conv(head + ".0", "Conv_0", bias=True)
+        h.conv(head + ".2", "Conv_1", bias=True)
+
+
+def _corner_cpool(root: _Writer, num_layers: int) -> None:
+    _backbone(root.sub("ResNetBackbone_0"), "backbone.", num_layers)
+    root.conv("heatmap.0", "Conv_0", bias=True)
+    root.conv("heatmap.2", "Conv_1", bias=True)
+    for head in ("tl_head", "br_head"):
+        h = root.sub(head)
+        pb = h.sub("CornerPoolBlock_0")
+        key = head + ".pool_block"
+        pb.conv_block(key + ".branch1", "ConvBlock_0")
+        pb.conv_block(key + ".branch2", "ConvBlock_1")
+        pb.conv(key + ".merge_conv", "Conv_0")
+        pb.bn(key + ".merge_bn", "BatchNorm_0")
+        pb.conv(key + ".skip_conv", "Conv_1")
+        pb.bn(key + ".skip_bn", "BatchNorm_1")
+        pb.conv_block(key + ".out", "ConvBlock_2")
+        h.conv(head + ".terminal.0", "Conv_0", bias=True)
+        h.conv(head + ".terminal.2", "Conv_1", bias=True)
+
+
+def state_dict_from_flax(arch: str, params: Mapping[str, Any],
+                         batch_stats: Mapping[str, Any]) -> StateDict:
+    """The port model's state dict for profile ``arch`` from the JAX
+    model's ``params`` and ``batch_stats`` trees."""
+    profile = get_model_profile(arch)
+    sd: StateDict = {}
+    root = _Writer(sd, params, batch_stats)
+    if profile.family == "centerOffset":
+        _center_offset(root, profile.num_layers)
+    else:  # the registry's only corner profiles are cornerCPoolRes*
+        _corner_cpool(root, profile.num_layers)
+    return sd

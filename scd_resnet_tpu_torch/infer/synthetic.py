@@ -1,0 +1,84 @@
+"""Seeded synthetic slides and seeded models for exercising the serving
+path without trained weights (``chip_smoke.py``, ``profile_serve``).
+
+``synthetic_slide`` draws a uint8 grayscale slide: a noisy bright
+background with dark elliptic blobs about the size of sperm heads.
+
+``seeded_model`` builds a profile's model with weights drawn from a seed:
+conv kernels N(0, 1/fan_in), conv biases and BatchNorm bias/mean
+N(0, 0.1), BatchNorm scale/var U(0.5, 1.5). Random weights give a heat
+map with no structure, so each heat head's final 1x1 conv is then made
+zero-mean over its inputs and rescaled on the caller's clips: its logits
+get standard deviation 2 and their 99.7th percentile sits at the 0.3
+serving threshold, which leaves a few dozen distinct peaks per clip.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from scd_resnet_tpu_torch.infer.analyse import SCORE_THRESHOLD
+from scd_resnet_tpu_torch.train.registry import get_model_profile
+
+# family -> heat heads' final-conv modules and their output names
+HEAT_HEADS = {
+    "centerOffset": {"heatmap": "heatmap"},
+    "corner": {"heatmap": "heatmap", "tl_head.terminal": "tl",
+               "br_head.terminal": "br"},
+}
+
+
+def synthetic_slide(height: int, width: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    slide = rng.normal(200.0, 12.0, (height, width)).astype(np.float32)
+    yy, xx = np.mgrid[-16:17, -16:17]
+    for _ in range(height * width // 6000):
+        cy, cx = rng.integers(16, height - 16), rng.integers(16, width - 16)
+        ry, rx = rng.uniform(6, 16, 2)
+        mask = (yy / ry) ** 2 + (xx / rx) ** 2 <= 1.0
+        slide[cy - 16:cy + 17, cx - 16:cx + 17][mask] -= rng.uniform(60, 120)
+    return np.clip(np.round(slide), 0, 255).astype(np.uint8)
+
+
+def seeded_model(arch: str, seed: int, clips: torch.Tensor) -> nn.Module:
+    """Profile ``arch``'s model, eval mode on ``clips.device``, weights
+    from ``seed`` and heat heads calibrated on ``clips`` (N, 1, H, W)."""
+    profile = get_model_profile(arch)
+    model = profile.build()
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)):
+                w = module.weight
+                fan_in = w[0].numel() if isinstance(module, nn.Conv2d) \
+                    else w.shape[0] * w.shape[2] * w.shape[3]
+                w.copy_(torch.randn(w.shape, generator=gen) / math.sqrt(fan_in))
+                if module.bias is not None:
+                    module.bias.copy_(0.1 * torch.randn(module.bias.shape,
+                                                        generator=gen))
+            elif isinstance(module, nn.BatchNorm2d):
+                n = module.num_features
+                module.weight.copy_(0.5 + torch.rand(n, generator=gen))
+                module.running_var.copy_(0.5 + torch.rand(n, generator=gen))
+                module.bias.copy_(0.1 * torch.randn(n, generator=gen))
+                module.running_mean.copy_(0.1 * torch.randn(n, generator=gen))
+        heads = HEAT_HEADS[profile.family]
+        finals = {name: model.get_submodule(name)[-1] for name in heads}
+        for conv in finals.values():
+            conv.weight.sub_(conv.weight.mean(dim=1, keepdim=True))
+            conv.bias.zero_()
+        model = model.to(clips.device).eval()
+        with torch.inference_mode():
+            outs = model(clips)
+        for name, conv in finals.items():
+            z = outs[heads[name]].double().flatten()
+            scale = 2.0 / z.std().item()
+            q = torch.quantile(z, 0.997).item()
+            conv.weight.mul_(scale)
+            conv.bias.fill_(math.log(SCORE_THRESHOLD / (1 - SCORE_THRESHOLD))
+                            - scale * q)
+    return model

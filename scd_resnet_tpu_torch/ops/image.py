@@ -1,0 +1,55 @@
+"""Grayscale conversion and reflect padding for served slides.
+
+Counterpart of ``scd_resnet_tpu/ops/image.py`` (the port keeps its own
+copy). The reference's inference grayscale is
+``round(0.1140 R + 0.5870 G + 0.2989 B)`` — BGR-ordered weights applied
+to RGB channels, rounded (reference test.py:21-33). Its served pad is
+symmetric on x (edge repeated, cv2 BORDER_REFLECT) and reflect101 on y
+(edge not repeated, torch 'reflect').
+
+``reflect_index`` builds either pad as an index gather, which works the
+same on host arrays and device tensors; PyTorch's ``F.pad`` has no
+symmetric mode.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def grayscale_inference_u8(rgb: np.ndarray) -> np.ndarray:
+    """Inference grayscale of an (..., 3) RGB array as uint8 (the rounded
+    formula's range is [0, 255]; numpy rounds half to even)."""
+    rgb = np.asarray(rgb)
+    gray = np.round(0.1140 * rgb[..., 0] + 0.5870 * rgb[..., 1]
+                    + 0.2989 * rgb[..., 2])
+    return gray.astype(np.uint8)
+
+
+def reflect_index(n: int, before: int, after: int, mode: str) -> np.ndarray:
+    """Source indices of an axis of length ``n`` padded by
+    ``(before, after)``, as ``np.pad`` computes them for ``mode``
+    ``"reflect101"`` (numpy 'reflect') or ``"symmetric"``, any pad
+    width."""
+    i = np.arange(-before, n + after)
+    if mode == "reflect101":
+        if n == 1:
+            return np.zeros_like(i)
+        period = 2 * (n - 1)
+        i = np.mod(i, period)
+        return np.where(i >= n, period - i, i)
+    if mode == "symmetric":
+        period = 2 * n
+        i = np.mod(i, period)
+        return np.where(i >= n, period - 1 - i, i)
+    raise ValueError("unknown pad mode {!r}".format(mode))
+
+
+def pad_reflect_hybrid(image: np.ndarray, pad_lr: int, pad_tb: int
+                       ) -> np.ndarray:
+    """Reflect-pad an (H, W) image: symmetric on x, reflect101 on y."""
+    image = np.asarray(image)
+    h, w = image.shape
+    rows = reflect_index(h, pad_tb, pad_tb, "reflect101")
+    cols = reflect_index(w, pad_lr, pad_lr, "symmetric")
+    return image[rows][:, cols]

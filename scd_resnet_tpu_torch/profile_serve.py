@@ -1,0 +1,139 @@
+"""Where a served slide's time goes on the card.
+
+    python -m scd_resnet_tpu_torch.profile_serve [--requests 5]
+
+For ``cornerCPoolRes10`` and ``centerOffsetRes10`` at full width (seeded
+weights, ``infer/synthetic.py``) on a seeded 3092x2056 slide (48 clips),
+after two warm-up requests, it prints one JSON line per model with:
+
+- ``e2e_ms``: host wall time of one ``analyse(slide)`` (upload, tiling,
+  forward, decode, readback, stitch), mean over ``--requests``;
+- ``phases_ms``: the same request cut into phases, each timed alone
+  with CUDA events (host clock for the host stitch): upload, tile,
+  forward, decode (wrapper minus forward), readback, stitch;
+- ``kernels``: device time per request by kernel (``torch.profiler``
+  over ``--requests`` requests), the largest first, and
+  ``device_busy_share``: summed kernel time over the profiled wall time.
+
+Needs a CUDA card; float32 with TF32 off and deterministic cuDNN, as in
+serving.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+from typing import Callable, Dict
+
+import torch
+
+from scd_resnet_tpu_torch.core.device import reproducible_float32, resolve_device
+from scd_resnet_tpu_torch.infer.analyse import (
+    make_device_analyzer,
+    make_device_tiler,
+    stitch_any,
+    slide_geometry,
+)
+from scd_resnet_tpu_torch.infer.synthetic import seeded_model, synthetic_slide
+from scd_resnet_tpu_torch.infer.wrapper import make_wrapper
+from scd_resnet_tpu_torch.train.registry import get_model_profile
+
+SLIDE_W, SLIDE_H = 3092, 2056
+ARCHS = {"cornerCPoolRes10": 10, "centerOffsetRes10": 11}  # arch -> seed
+
+
+def device_ms(fn: Callable[[], object], n: int, warmup: int = 0) -> float:
+    """Mean device time in ms of ``fn()`` over ``n`` calls, by CUDA
+    events, after ``warmup`` untimed calls."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def profile_arch(arch: str, seed: int, slide, n: int) -> Dict:
+    device = torch.device("cuda")
+    tiler = make_device_tiler(SLIDE_W, SLIDE_H, device)
+    gray = torch.from_numpy(slide)
+    clips = tiler(gray.to(device))
+    profile = get_model_profile(arch)
+    model = seeded_model(arch, seed, clips)
+    wrapper = make_wrapper(model, profile.family)
+    analyse = make_device_analyzer(wrapper, SLIDE_W, SLIDE_H)
+    for _ in range(2):
+        analyse(slide)
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    for _ in range(n):
+        detections = analyse(slide)
+    e2e_ms = (time.perf_counter() - t0) * 1e3 / n
+
+    gray_dev = gray.to(device)
+    rows = wrapper(clips)
+    with torch.inference_mode():
+        forward_ms = device_ms(lambda: model(clips), n)
+        phases = {
+            "upload": device_ms(lambda: gray.to(device), n),
+            "tile": device_ms(lambda: tiler(gray_dev), n),
+            "forward": forward_ms,
+            "decode": device_ms(lambda: wrapper(clips), n) - forward_ms,
+            "readback": device_ms(lambda: rows.cpu(), n),
+        }
+    geometry = slide_geometry(SLIDE_W, SLIDE_H)
+    host_rows = rows.cpu().numpy()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        stitch_any(host_rows, wrapper.contract, *geometry, (SLIDE_W, SLIDE_H))
+    phases["stitch"] = (time.perf_counter() - t0) * 1e3 / n
+
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            analyse(slide)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels.append({"name": evt.key[:120],
+                            "ms_per_request": evt.self_device_time_total
+                            / 1e3 / n,
+                            "calls_per_request": evt.count / n})
+    kernels.sort(key=lambda k: -k["ms_per_request"])
+    busy_ms = sum(k["ms_per_request"] for k in kernels) * n
+    return {"arch": arch, "clips": clips.shape[0],
+            "detections": len(detections), "e2e_ms": e2e_ms,
+            "phases_ms": phases,
+            "device_busy_share": busy_ms / window_ms if window_ms else None,
+            "kernels": kernels[:15]}
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--requests", type=int, default=5)
+    args = parser.parse_args(argv)
+    resolve_device("cuda")
+    reproducible_float32()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], check=True,
+                          capture_output=True, text=True).stdout.strip()
+    slide = synthetic_slide(SLIDE_H, SLIDE_W, seed=2056)
+    for arch, seed in ARCHS.items():
+        result = profile_arch(arch, seed, slide, args.requests)
+        result["card"] = card
+        print(json.dumps(result), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,81 @@
+"""Model profiles the port can build, by name.
+
+Counterpart of ``scd_resnet_tpu/train/registry.py`` for the profiles
+whose model classes are ported. Widths and depths are the JAX
+registry's (reference trainer/model/*.py):
+
+- ``centerOffsetRes{10,18,34,50}``: full width, terminal hidden 128;
+- ``centerOffsetRes{10,18,34,50,101}h``: half width, hidden 64;
+- ``centerOffsetRes10q``: quarter width, hidden 64;
+- ``cornerCPoolRes{10,18}``: full width, corner-pooled tl/br heads.
+
+``family`` names the deployment contract (``infer/wrapper.CONTRACTS``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+from torch import nn
+
+from scd_resnet_tpu_torch.models import center_net_offset as cno
+from scd_resnet_tpu_torch.models import corner_net as corner
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelProfile:
+    name: str
+    model_cls: Any
+    model_params: Dict[str, Any]
+    family: str = "centerOffset"
+
+    def build(self) -> nn.Module:
+        return self.model_cls(**self.model_params)
+
+    @property
+    def num_layers(self) -> int:
+        return self.model_params["num_layers"]
+
+
+MODEL_PROFILES: Dict[str, ModelProfile] = {}
+
+
+def register_model(profile: ModelProfile) -> None:
+    MODEL_PROFILES[profile.name] = profile
+
+
+def get_model_profile(name: str) -> ModelProfile:
+    if name not in MODEL_PROFILES:
+        raise KeyError("unknown model profile '{}'; known: {}".format(
+            name, sorted(MODEL_PROFILES)))
+    return MODEL_PROFILES[name]
+
+
+FULL = (64, 64, 128, 256, 512, 256, 256, 256)
+HALF = (32, 32, 64, 128, 256, 128, 128, 128)
+QUARTER = (16, 16, 32, 64, 128, 64, 64, 64)
+
+
+def _center_offset(name: str, num_layers: int, dims, hidden: int) -> None:
+    register_model(ModelProfile(
+        name=name,
+        model_cls=cno.CenterNetResidual,
+        model_params={"num_layers": num_layers, "dims": tuple(dims),
+                      "terminal_hidden": hidden},
+    ))
+
+
+for _depth in (10, 18, 34, 50):
+    _center_offset(f"centerOffsetRes{_depth}", _depth, FULL, 128)
+for _depth in (10, 18, 34, 50, 101):
+    _center_offset(f"centerOffsetRes{_depth}h", _depth, HALF, 64)
+_center_offset("centerOffsetRes10q", 10, QUARTER, 64)
+
+for _depth in (10, 18):
+    register_model(ModelProfile(
+        name=f"cornerCPoolRes{_depth}",
+        model_cls=corner.CornerNetCPoolResidual,
+        model_params={"num_layers": _depth, "dims": FULL},
+        family="corner",
+    ))

@@ -1,0 +1,148 @@
+"""The port's serving entry points on the CPU: the HTTP daemon
+(/analyse with PNG and raw bytes, /healthz, /metrics, /warmup), the
+``serve`` CLI's refusal to start without CUDA unless ``--device cpu``,
+and a subprocess that blocks ``jax``, ``flax`` and ``scd_resnet_tpu``
+and still imports the port and serves a clip."""
+
+import io
+import json
+import os
+import subprocess
+import sys
+import textwrap
+import threading
+import urllib.error
+import urllib.request
+
+import numpy as np
+import pytest
+import torch
+
+from scd_resnet_tpu_torch.core.checkpoint import save_checkpoint
+from scd_resnet_tpu_torch.infer.server import InferenceService, create_server
+from scd_resnet_tpu_torch.infer.wrapper import make_wrapper
+from scd_resnet_tpu_torch.models.center_net_offset import CenterNetResidual
+from scd_resnet_tpu_torch import serve
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = (8, 8, 16, 32, 64, 32, 32, 32)
+
+
+def _tiny_wrapper():
+    torch.manual_seed(0)
+    return make_wrapper(CenterNetResidual(10, TINY, terminal_hidden=16),
+                        "centerOffset")
+
+
+@pytest.fixture(scope="module")
+def server_url():
+    httpd = create_server(InferenceService(_tiny_wrapper()), "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    yield "http://127.0.0.1:{}".format(httpd.server_address[1])
+    httpd.shutdown()
+    httpd.server_close()
+    thread.join(timeout=30)
+
+
+def _get(url):
+    with urllib.request.urlopen(url, timeout=300) as resp:
+        return json.loads(resp.read())
+
+
+def _post(url, data, headers=None):
+    req = urllib.request.Request(url, data=data, method="POST",
+                                 headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read())
+
+
+def test_http_analyse_health_metrics(server_url):
+    from PIL import Image
+
+    slide = np.random.default_rng(0).integers(0, 255, (600, 700), np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(slide).save(buf, format="PNG")
+    status, png = _post(server_url + "/analyse", buf.getvalue())
+    assert status == 200 and png["contract"] == "centerOffset"
+    assert png["count"] == len(png["detections"])
+    for det in png["detections"]:
+        assert set(det) == {"x", "y", "rhr"}
+        assert 0 <= det["x"] < 700 and 0 <= det["y"] < 600
+
+    status, raw = _post(server_url + "/analyse?dedupe=16", slide.tobytes(), {
+        "Content-Type": "application/octet-stream",
+        "X-Width": "700", "X-Height": "600"})
+    assert status == 200 and raw["count"] <= png["count"]
+    status, bad = _post(server_url + "/analyse", slide.tobytes()[:-1], {
+        "Content-Type": "application/octet-stream",
+        "X-Width": "700", "X-Height": "600"})
+    assert status == 400
+
+    status, warm = _post(server_url + "/warmup?width=512&height=512", b"")
+    assert status == 200 and warm["compiled_seconds"] > 0
+    health = _get(server_url + "/healthz")
+    assert health["status"] == "ok" and health["devices"] == ["cpu"]
+    assert set(health["geometries"]) == {"700x600", "512x512"}
+    metrics = _get(server_url + "/metrics")
+    assert metrics["requests"] == 2 and metrics["errors"] == 0
+    assert metrics["clips"] == 8 and metrics["compiles"] == 2
+    assert metrics["clips_per_second"] > 0
+
+
+def test_serve_cli_needs_cuda_unless_cpu(tmp_path, monkeypatch):
+    path = save_checkpoint(str(tmp_path / "q.pt"), "centerOffsetRes10q",
+                           CenterNetResidual(10, (16, 16, 32, 64, 128, 64,
+                                                  64, 64), 64).state_dict())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["-c", path, "-a", "centerOffsetRes10q"])
+    args = serve.parse_args(["-c", path, "-a", "centerOffsetRes10q",
+                             "--device", "cpu", "--warmup", "512x512"])
+    service = serve.build_service(args)
+    assert service.health()["geometries"] == ["512x512"]
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.backends.cudnn.deterministic
+
+
+BLOCKED_IMPORTS = textwrap.dedent("""
+    import importlib.abc, sys
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            root = name.split(".")[0]
+            if root in ("jax", "jaxlib", "flax", "scd_resnet_tpu"):
+                raise ImportError("blocked import: " + name)
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import numpy as np
+    import torch
+    from scd_resnet_tpu_torch import serve
+    from scd_resnet_tpu_torch.infer.server import InferenceService
+    from scd_resnet_tpu_torch.infer.wrapper import make_wrapper
+    from scd_resnet_tpu_torch.train.registry import get_model_profile
+
+    torch.manual_seed(0)
+    wrapper = make_wrapper(get_model_profile("cornerCPoolRes10").build(),
+                           "corner")
+    slide = np.random.default_rng(0).integers(0, 255, (512, 512), np.uint8)
+    detections = InferenceService(wrapper).analyse_gray(slide)
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "flax", "scd_resnet_tpu"))
+    assert not leaked, leaked
+    print("served", len(detections))
+""")
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", BLOCKED_IMPORTS], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("served ")
