@@ -7,6 +7,9 @@ quietly on the host.
 
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator
+
 import torch
 
 
@@ -31,10 +34,35 @@ def reproducible_float32() -> None:
     its outputs be held against the CPU's. A lower precision is a
     separate decision with its own stated bound.
 
-    cuDNN is held to deterministic algorithms: its default choice for the
-    transposed convolutions accumulates with atomics, so a score within
-    an ulp of the 0.3 threshold could pass on one request and fail on
-    the next; the same slide must give the same detections."""
+    cuDNN is held to deterministic algorithms, chosen by its heuristic
+    rather than by timing: its default choice for the transposed
+    convolutions accumulates with atomics, so a score within an ulp of
+    the 0.3 threshold could pass on one request and fail on the next; the
+    same slide must give the same detections."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+@contextlib.contextmanager
+def training_backends(precision: str) -> Iterator[None]:
+    """cuDNN and cuBLAS settings for a training run, restored on exit.
+
+    A float32 run takes ``reproducible_float32``: its steps are held
+    against the CPU's. A bfloat16 run lets cuDNN time its algorithms and
+    take non-deterministic ones, for speed. The settings hold for the
+    whole process, serving included, so only entry points set them."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic,
+             cudnn.benchmark)
+    try:
+        if precision == "bfloat16":
+            cudnn.deterministic = False
+            cudnn.benchmark = True
+        else:
+            reproducible_float32()
+        yield
+    finally:
+        (cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic,
+         cudnn.benchmark) = saved

@@ -1,8 +1,10 @@
 """Building blocks: BatchNorm, Conv+BN+ReLU, the 7x7/s2 stem.
 
-Counterpart of ``scd_resnet_tpu/models/layers.py``, NCHW. Serving runs
-the models in eval mode, where BatchNorm normalises with its running
-statistics exactly as flax's ``use_running_average=True`` does (eps 1e-5).
+Counterpart of ``scd_resnet_tpu/models/layers.py``, NCHW. In eval mode
+BatchNorm normalises with its running statistics exactly as flax's
+``use_running_average=True`` does (eps 1e-5). In training mode it keeps
+flax's running statistics, which differ from ``nn.BatchNorm2d``'s: see
+:class:`BatchNorm`.
 The JAX stem conv is a space-to-depth lowering of a 7x7/s2/p3 conv; here
 it is that plain conv, with the same kernel.
 """
@@ -10,14 +12,50 @@ it is that plain conv, with the same kernel.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch convention; flax's 0.9
 
 
-def batch_norm(features: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training-mode update keeps flax's running
+    statistics (``scd_resnet_tpu/models/layers.BatchNorm``, flax
+    ``nn.BatchNorm(momentum=0.9)``):
+
+        running_mean = 0.9 running_mean + 0.1 mean(x)
+        running_var  = 0.9 running_var  + 0.1 var(x),  var biased (/ n)
+
+    ``nn.BatchNorm2d`` puts the unbiased variance (/ (n - 1)) into
+    ``running_var``. The batch is normalised by its biased variance
+    either way, and eval mode and the state-dict names are
+    ``nn.BatchNorm2d``'s, so reference ``.pth`` files load with
+    ``strict=True``.
+
+    The batch moments come from the same fused ``F.batch_norm`` call that
+    normalises the batch (into scratch buffers, momentum 1); the unbiased
+    variance is then scaled by (n - 1) / n."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
+                         self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():  # mean and var are saved for the backward
+            self.running_mean.mul_(1.0 - self.momentum).add_(
+                mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(
+                var * ((n - 1) / n), alpha=self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+def batch_norm(features: int) -> BatchNorm:
+    return BatchNorm(features, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 def conv3x3(in_features: int, features: int, stride: int = 1,

@@ -119,6 +119,7 @@ class TerminalHead(nn.Sequential):
         else:
             layers = [conv1x1(in_features, spec.out_features, bias=True)]
         super().__init__(*layers)
+        self.spec = spec
         final = layers[-1]
         if spec.small_init:
             nn.init.normal_(final.weight, std=0.001)
@@ -128,7 +129,10 @@ class TerminalHead(nn.Sequential):
         *body, final = self
         for layer in body:
             x = layer(x)
-        return final(x.float())
+        # float32 even under autocast: the JAX head casts its input up and
+        # keeps the final conv's dtype at float32
+        with torch.autocast(x.device.type, enabled=False):
+            return final(x.float())
 
 
 class ResNetBackbone(nn.Module):
@@ -173,3 +177,45 @@ class ResNetBackbone(nn.Module):
         if not self.terminal_names:
             return x
         return {name: getattr(self, name)(x) for name in self.terminal_names}
+
+
+# flax's lecun_normal: variance_scaling(1, "fan_in", "truncated_normal"),
+# a normal truncated to +-2 std, its std divided by this constant so the
+# truncated distribution has variance 1 / fan_in
+_TRUNCATED_NORMAL_STD = 0.87962566103423978
+
+
+def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
+    """Draw fresh weights from the distributions of the JAX model's
+    initialisers (``scd_resnet_tpu/models/resnet.py``), not PyTorch's
+    defaults:
+
+    - every conv kernel: ``nn.initializers.lecun_normal()``, flax
+      ``nn.Conv``'s default (the stem's ``StemConv7x7S2`` names it too);
+      conv biases ``zeros_init()``;
+    - the deconvolution kernels: ``normal(stddev=0.001)`` (l.254);
+    - the heads' final 1x1 convs (``_final_conv_inits``, l.146-157): the
+      heatmap's ``lecun_normal`` with bias ``constant(-2.19)``, the
+      regression and offset heads' ``normal(stddev=0.001)`` with bias 0;
+    - BatchNorm: flax's scale 1, bias 0, running mean 0, variance 1.
+    """
+    finals = {id(m[-1]): m.spec for m in model.modules()
+              if isinstance(m, TerminalHead)}
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.ConvTranspose2d):
+                m.weight.normal_(0.0, 0.001, generator=generator)
+            elif isinstance(m, nn.Conv2d):
+                spec = finals.get(id(m))
+                if spec is not None and spec.small_init:
+                    m.weight.normal_(0.0, 0.001, generator=generator)
+                else:
+                    std = (1.0 / m.weight[0].numel()) ** 0.5 \
+                        / _TRUNCATED_NORMAL_STD
+                    nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std,
+                                          2.0 * std, generator=generator)
+                if m.bias is not None:
+                    bias = spec.final_bias if spec is not None else None
+                    m.bias.fill_(bias if bias is not None else 0.0)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()

@@ -1,0 +1,184 @@
+"""Where a training step's time goes on the card.
+
+    python -m scd_resnet_tpu_torch.profile_train [--archive PATH] [--steps 20]
+
+Trains ``centerOffsetRes10`` under ``configs/exp74.json`` (512x512 clips,
+batch 32, bf16 autocast, Adam) on the seeded synthetic stand-in for its
+archive (``EXP74_ARCHIVE``, 256 clips; written to ``build/profile_train/``
+unless ``--archive`` names a copy, such as the one ``chip_smoke.py``
+writes), with the training rows resident on the card. After 10 warm-up steps
+(cuDNN autotunes its algorithms in the first ones) it prints one JSON
+line:
+
+- ``step_ms`` and ``clips_per_s``: host wall time of ``--steps`` steps
+  ending in a synchronise, per step;
+- ``phases_ms``: one step cut into phases, each timed alone with CUDA
+  events over ``--steps`` calls: gather (the batch's rows by index),
+  augment+render (the batch transform, heatmaps by the render kernel),
+  render (the kernel alone), forward (training mode, autocast), and
+  forward+loss+backward;
+- ``kernels``: device time per step by kernel name (``torch.profiler``
+  over ``--steps`` steps), the largest first, ``device_busy_share``
+  (summed kernel time over the profiled wall time) and the render
+  kernel's own line;
+- ``peak_memory_gb``: ``torch.cuda.max_memory_allocated`` over the run.
+
+Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import time
+from typing import Any, Dict
+
+import torch
+
+from scd_resnet_tpu_torch.core.config import Configuration
+from scd_resnet_tpu_torch.core.device import resolve_device, training_backends
+from scd_resnet_tpu_torch.data.pipeline import augment_and_render_batch
+from scd_resnet_tpu_torch.data.synthetic import make_archive
+from scd_resnet_tpu_torch.models.center_net_offset import as_stack_list
+from scd_resnet_tpu_torch.ops.gaussian import render_heatmap
+from scd_resnet_tpu_torch.profile_serve import device_ms
+from scd_resnet_tpu_torch.train.factory import NetworkFactory
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EXP74 = os.path.join(REPO, "configs", "exp74.json")
+# the synthetic stand-in for exp74's archive (``make_archive``'s
+# arguments): 2 x 128 clips of 512^2, half of them validation
+EXP74_ARCHIVE = {"num_images": 2, "reps": 1, "clips_per_image": 128,
+                 "size": 512, "seed": 74}
+RENDER_KERNEL = "render_heatmap_kernel"
+WARMUP_STEPS = 10
+
+
+def exp74_settings(data_dir: str, work: str, **overrides) -> Dict[str, Any]:
+    """``configs/exp74.json`` with its archive in ``data_dir``, its outputs
+    under ``work`` and ``overrides`` on top."""
+    with open(EXP74) as f:
+        settings = json.load(f)
+    settings.update(dirDataset=data_dir + "/", dirTemp=work + "/temp/",
+                    dirResult=work + "/results/", **overrides)
+    return settings
+
+
+def build_factory(archive: str, work: str) -> NetworkFactory:
+    cfg = Configuration()
+    cfg.update_config(exp74_settings(os.path.dirname(archive), work,
+                                     residency="device"))
+    if os.path.basename(cfg.dirDatafile) != os.path.basename(archive):
+        raise ValueError("the archive must be named {}".format(
+            os.path.basename(cfg.dirDatafile)))
+    return NetworkFactory(cfg, device="cuda")
+
+
+def profile(factory: NetworkFactory, steps: int) -> Dict:
+    batch = factory.config.batchSize
+    indices = []
+    epoch = 0
+    while len(indices) < WARMUP_STEPS + 3 * steps:
+        indices.extend(factory.dataset.epoch_local_indices(batch, epoch))
+        epoch += 1
+    feed = iter(indices)
+    for _ in range(WARMUP_STEPS):
+        factory.train_resident(next(feed))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        factory.train_resident(next(feed))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+
+    # the phases of one step, each alone, on one fixed batch
+    idx = torch.as_tensor(next(feed)).cuda()
+    gathered = (factory._ds_samples.index_select(0, idx),
+                factory._ds_locs.index_select(0, idx),
+                factory._ds_counts.index_select(0, idx))
+    draws = factory.draws_for_step(0, batch)
+    xs, ys = augment_and_render_batch(*gathered, factory.heat_size,
+                                      draws=draws)
+    locs = gathered[1].float().contiguous()
+    present = (torch.arange(locs.shape[1], device="cuda")[None, :]
+               < gathered[2][:, None])
+    model, autocast = factory.model, factory.autocast
+    model.train()
+
+    def forward():
+        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=autocast):
+            return model(xs)
+
+    def forward_backward():
+        model.zero_grad(set_to_none=True)
+        loss, _ = factory.loss(as_stack_list(forward()), ys)
+        loss.backward()
+
+    phases = {
+        "gather": device_ms(lambda: [t.index_select(0, idx) for t in (
+            factory._ds_samples, factory._ds_locs, factory._ds_counts)],
+            steps, warmup=2),
+        "augment_render": device_ms(lambda: augment_and_render_batch(
+            *gathered, factory.heat_size, draws=draws), steps, warmup=2),
+        "render_kernel": device_ms(lambda: render_heatmap(
+            locs, present, factory.heat_size), steps, warmup=2),
+        "forward": device_ms(forward, steps, warmup=2),
+        "forward_loss_backward": device_ms(forward_backward, steps,
+                                           warmup=2),
+    }
+
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            factory.train_resident(next(feed))
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels.append({"name": evt.key[:120],
+                            "ms_per_step": evt.self_device_time_total
+                            / 1e3 / steps,
+                            "calls_per_step": evt.count / steps})
+    kernels.sort(key=lambda k: -k["ms_per_step"])
+    busy_ms = sum(k["ms_per_step"] for k in kernels) * steps
+    render = [k for k in kernels if RENDER_KERNEL in k["name"]]
+    return {"arch": factory.config.modelName, "batch": batch,
+            "clip": factory.sample_size,
+            "precision": factory.config.config["precision"],
+            "step_ms": step_ms, "clips_per_s": batch * 1e3 / step_ms,
+            "phases_ms": phases,
+            "device_busy_share": busy_ms / window_ms if window_ms else None,
+            "render_kernel": render[0] if render else None,
+            "kernels": kernels[:20],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1024 ** 3}
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--archive", default=os.path.join(
+        REPO, "build", "profile_train", "scdx16p100.d"))
+    parser.add_argument("--steps", type=int, default=20)
+    args = parser.parse_args(argv)
+    resolve_device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], check=True,
+                          capture_output=True, text=True).stdout.strip()
+    if not os.path.exists(args.archive):
+        os.makedirs(os.path.dirname(args.archive), exist_ok=True)
+        make_archive(args.archive, **EXP74_ARCHIVE)
+    work = os.path.join(REPO, "build", "profile_train")
+    with training_backends("bfloat16"):
+        result = profile(build_factory(args.archive, work), args.steps)
+    result["card"] = card
+    print(json.dumps(result), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,58 @@
+"""Train a model from an experiment configuration.
+
+    python -m scd_resnet_tpu_torch.train <config.json> [--device cuda|cpu]
+
+Counterpart of the root ``train.py`` (reference train.py:31-110). The
+configuration has the ``exp.json`` schema (``configs/exp74.json`` is the
+production centerOffsetRes10 run). It trains on the CUDA card unless
+``--device cpu`` is given, and refuses to start without one. Results go
+to ``dirResult`` (loss CSVs, ``evals.{trainName}.txt``,
+``telemetry.{trainName}.jsonl``), checkpoints to ``dirTemp``; resume by
+setting ``currentIter`` to a snapshot's iteration. cuDNN's settings follow
+the configuration's ``precision`` for the run and are restored after it
+(``core/device.training_backends``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from pprint import pprint
+from typing import Any, Dict, List, Optional
+
+from scd_resnet_tpu_torch.core.config import Configuration
+from scd_resnet_tpu_torch.core.device import training_backends
+from scd_resnet_tpu_torch.core.logging import Logger
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(
+        prog="python -m scd_resnet_tpu_torch.train",
+        description="train a model with a given configuration")
+    parser.add_argument("configuration",
+                        help="path to the configuration (exp.json schema)")
+    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                        help="where to train (default: the CUDA card)")
+    return parser.parse_args(argv)
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
+    """Train as the command line says; returns the run's summary
+    (``NetworkFactory.begin_training``)."""
+    from scd_resnet_tpu_torch.train.factory import NetworkFactory
+
+    args = parse_args(argv)
+    config = Configuration.from_json(args.configuration)
+    pprint(config.config, indent=4)
+    Logger.info(":: train :: {} on {} ::".format(args.configuration,
+                                                  args.device))
+    with training_backends(config.config.get("precision", "float32")):
+        factory = NetworkFactory(config, device=args.device)
+        summary = factory.begin_training(telemetry_path=os.path.join(
+            config.dirResult, "telemetry.{}.jsonl".format(config.trainName)))
+    Logger.info(":: train :: done: {}".format(summary))
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -10,17 +10,26 @@ registry's (reference trainer/model/*.py):
 - ``cornerCPoolRes{10,18}``: full width, corner-pooled tl/br heads.
 
 ``family`` names the deployment contract (``infer/wrapper.CONTRACTS``).
+The training pieces (``loss``, ``decode``, ``evaluation``,
+``expression``) are set for the ``centerOffset*`` profiles, with the JAX
+registry's loss weights (0.1, 0.1; reference centerOffsetRes10.py:9-17);
+the corner profiles train from slice 3 on.
+
+Dataset profiles: the 25 ``scdx{A}p{P}`` variants (A in {1,4,8,12,16}
+rotation-augment intake, P in {5,10,25,50,100} percent partition), which
+differ only in three constants (reference scdx1p5.py:57-60).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional
 
 from torch import nn
 
 from scd_resnet_tpu_torch.models import center_net_offset as cno
 from scd_resnet_tpu_torch.models import corner_net as corner
+from scd_resnet_tpu_torch.train.expression import expression_center_net
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +38,12 @@ class ModelProfile:
     model_cls: Any
     model_params: Dict[str, Any]
     family: str = "centerOffset"
+    loss: Optional[Callable] = None
+    decode: Optional[Callable] = None
+    evaluation: Optional[Callable] = None
+    expression: Optional[Callable] = None
+    # corner families train on batches that carry tl/br corner heatmaps
+    corner_targets: Any = False
 
     def build(self) -> nn.Module:
         return self.model_cls(**self.model_params)
@@ -38,7 +53,16 @@ class ModelProfile:
         return self.model_params["num_layers"]
 
 
+@dataclasses.dataclass(frozen=True)
+class DatasetProfile:
+    name: str
+    argument_ratio: int
+    partition: float
+    train_subset: str
+
+
 MODEL_PROFILES: Dict[str, ModelProfile] = {}
+DATASET_PROFILES: Dict[str, DatasetProfile] = {}
 
 
 def register_model(profile: ModelProfile) -> None:
@@ -52,6 +76,13 @@ def get_model_profile(name: str) -> ModelProfile:
     return MODEL_PROFILES[name]
 
 
+def get_dataset_profile(name: str) -> DatasetProfile:
+    if name not in DATASET_PROFILES:
+        raise KeyError("unknown dataset profile '{}'; known: {}".format(
+            name, sorted(DATASET_PROFILES)))
+    return DATASET_PROFILES[name]
+
+
 FULL = (64, 64, 128, 256, 512, 256, 256, 256)
 HALF = (32, 32, 64, 128, 256, 128, 128, 128)
 QUARTER = (16, 16, 32, 64, 128, 64, 64, 64)
@@ -63,6 +94,10 @@ def _center_offset(name: str, num_layers: int, dims, hidden: int) -> None:
         model_cls=cno.CenterNetResidual,
         model_params={"num_layers": num_layers, "dims": tuple(dims),
                       "terminal_hidden": hidden},
+        loss=cno.CenterNetLoss(0.1, 0.1),
+        decode=cno.decode_center_net,
+        evaluation=cno.center_net_evaluation,
+        expression=expression_center_net,
     ))
 
 
@@ -79,3 +114,9 @@ for _depth in (10, 18):
         model_params={"num_layers": _depth, "dims": FULL},
         family="corner",
     ))
+
+for _a in (1, 4, 8, 12, 16):
+    for _p in (5, 10, 25, 50, 100):
+        DATASET_PROFILES[f"scdx{_a}p{_p}"] = DatasetProfile(
+            name=f"scdx{_a}p{_p}", argument_ratio=_a, partition=_p / 100.0,
+            train_subset=f"train{_a}p{_p}")

@@ -1,8 +1,9 @@
 """The port's serving entry points on the CPU: the HTTP daemon
 (/analyse with PNG and raw bytes, /healthz, /metrics, /warmup), the
 ``serve`` CLI's refusal to start without CUDA unless ``--device cpu``,
-and a subprocess that blocks ``jax``, ``flax`` and ``scd_resnet_tpu``
-and still imports the port and serves a clip."""
+and subprocesses that block ``jax``, ``flax``, ``optax`` and
+``scd_resnet_tpu`` and still import the port, serve a clip and train
+through ``python -m scd_resnet_tpu_torch.train``."""
 
 import io
 import json
@@ -109,17 +110,26 @@ def test_serve_cli_needs_cuda_unless_cpu(tmp_path, monkeypatch):
     assert torch.backends.cudnn.deterministic
 
 
-BLOCKED_IMPORTS = textwrap.dedent("""
+BLOCK = textwrap.dedent("""
     import importlib.abc, sys
+
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "scd_resnet_tpu")
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
-            root = name.split(".")[0]
-            if root in ("jax", "jaxlib", "flax", "scd_resnet_tpu"):
+            if name.split(".")[0] in BLOCKED:
                 raise ImportError("blocked import: " + name)
             return None
 
     sys.meta_path.insert(0, Block())
+""")
+
+LEAK_CHECK = textwrap.dedent("""
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not leaked, leaked
+""")
+
+SERVE_BLOCKED = BLOCK + textwrap.dedent("""
     import numpy as np
     import torch
     from scd_resnet_tpu_torch import serve
@@ -132,17 +142,44 @@ BLOCKED_IMPORTS = textwrap.dedent("""
                            "corner")
     slide = np.random.default_rng(0).integers(0, 255, (512, 512), np.uint8)
     detections = InferenceService(wrapper).analyse_gray(slide)
-    leaked = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "flax", "scd_resnet_tpu"))
-    assert not leaked, leaked
-    print("served", len(detections))
-""")
+""") + LEAK_CHECK + 'print("served", len(detections))\n'
+
+# python -m scd_resnet_tpu_torch.train <tiny config> --device cpu
+TRAIN_BLOCKED = BLOCK + textwrap.dedent("""
+    import json, os, runpy
+    from scd_resnet_tpu_torch.data.synthetic import make_archive
+
+    root = sys.argv[1]
+    make_archive(os.path.join(root, "scdx16p100.d"), num_images=2, reps=1,
+                 clips_per_image=8, size=64)
+    config = os.path.join(root, "tiny.json")
+    with open(config, "w") as f:
+        json.dump({"datasetName": "scdx16p100",
+                   "modelName": "centerOffsetRes10q", "trainName": "tiny",
+                   "batchSize": 4, "validationBatchSize": 4, "iterations": 2,
+                   "validation": 2, "snapshot": 2,
+                   "dirTemp": os.path.join(root, "temp/"),
+                   "dirResult": os.path.join(root, "results/"),
+                   "dirDataset": root + "/"}, f)
+    sys.argv = ["scd_resnet_tpu_torch.train", config, "--device", "cpu"]
+    runpy.run_module("scd_resnet_tpu_torch.train", run_name="__main__")
+""") + LEAK_CHECK + 'print("trained")\n'
 
 
-def test_port_imports_no_jax():
+def _run_blocked(script, *args):
     env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, "-c", BLOCKED_IMPORTS], cwd=REPO,
+    proc = subprocess.run([sys.executable, "-c", script, *args], cwd=REPO,
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert proc.stdout.startswith("served ")
+    return proc.stdout
+
+
+def test_port_imports_no_jax():
+    assert _run_blocked(SERVE_BLOCKED).startswith("served ")
+
+
+def test_train_entry_point_imports_no_jax(tmp_path):
+    out = _run_blocked(TRAIN_BLOCKED, str(tmp_path))
+    assert out.rstrip().endswith("trained")
+    assert (tmp_path / "results" / "losses.tiny.2.txt").exists()

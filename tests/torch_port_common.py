@@ -136,3 +136,17 @@ def calibrated_variables(family: str, seed: int, clips: torch.Tensor):
         bias = np.log(0.3 / 0.7) - scale * np.percentile(z, 99.7)
         node["bias"] = np.full_like(node["bias"], bias)
     return params, stats
+
+
+def jax_draws(key, b: int, s: int):
+    """The JAX batch transform's own random draws for ``key``
+    (``scd_resnet_tpu/data/pipeline.py:64-86``: split(4) -> two fair
+    coins, a jitter and a noise field), as the port's ``Draws``."""
+    from scd_resnet_tpu_torch.data.pipeline import Draws
+
+    k_fliph, k_flipv, k_jit, k_noise = jax.random.split(key, 4)
+    return Draws(*(torch.from_numpy(np.array(a)) for a in (
+        jax.random.bernoulli(k_fliph, 0.5, (b,)),
+        jax.random.bernoulli(k_flipv, 0.5, (b,)),
+        jax.random.normal(k_jit, (b, 1, 1)),
+        jax.random.normal(k_noise, (b, s, s)))))
