@@ -8,54 +8,87 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
 (``scd_resnet_tpu_torch``; nothing of JAX or of ``scd_resnet_tpu``):
 
 1. prints the toolchain and the card (``nvidia-smi`` name and power
-   limit), builds every kernel (``csrc/*.cu``, one ``nvcc`` each, all
-   started together) and starts writing the seeded synthetic 512x512
+   limit), builds every kernel source (``csrc/*.cu``, one ``nvcc`` each,
+   all started together) and starts writing the seeded synthetic 512x512
    training archive in a subprocess (cached under ``build/``);
 2. holds the corner-pool kernel (``csrc/corner_pool.cu``) against its
-   plain PyTorch version on the card in all four
-   directions at the served shape (48, 128, 128, 128) float32, on random
-   and on tie-heavy inputs: they must match exactly (a running max only
-   returns input values). It times the kernel, the plain version and
-   ``torch.cummax`` (a yardstick the port never calls), then checks the
-   kernel at a few ragged shapes with NaN inputs;
-3. serves ``cornerCPoolRes10`` and then ``centerOffsetRes10`` at full
+   plain PyTorch version on the card in all four directions at the
+   served shape (48, 128, 128, 128) float32, on random and on tie-heavy
+   inputs: they must match exactly (a running max only returns input
+   values). It times the kernel, the plain version and ``torch.cummax``
+   (a yardstick the port never calls), then checks the kernel at a few
+   ragged shapes with NaN inputs;
+3. holds the corner-pool backward kernel (same source) against its plain
+   version at the training shape (32, 128, 128, 128) float32, in all four
+   directions, on random and tie-heavy inputs: with a cotangent in [0.5,
+   1.5) no segment sum can cancel to 0, so the zero patterns (the
+   routing) must be equal, and the values agree within the float32
+   summation bound 2 (n - 1) 2^-24 sum|g| of the line (the kernel sums g
+   in another order than ``torch.cumsum``); values again for a signed
+   normal cotangent; then ragged shapes with NaN inputs. It times the
+   backward, its plain version and the forward at this shape;
+4. holds the stem max-pool backward kernel (``csrc/max_pool_bwd.cu``)
+   against its plain version at the stem's training shape (32, 64, 256,
+   256), bfloat16 and float32, on random and ReLU'd tie-heavy inputs,
+   then at odd and tiny shapes: equal zero patterns, float32 within 1e-6
+   relative, bfloat16 within one bf16 ulp (both add in one order, so
+   they are expected equal). It times the kernel, the plain version and,
+   as a yardstick the port never calls, PyTorch's
+   ``max_pool2d_with_indices_backward`` fed by its forward's indices;
+5. serves ``cornerCPoolRes10`` and then ``centerOffsetRes10`` at full
    width through the port's own serve entry point (``serve.build_service``
    + the HTTP server), from seeded random weights whose heat heads are
    rescaled so that a few dozen peaks per clip pass the 0.3 threshold,
    and POSTs a seeded synthetic 3092x2056 slide (48 clips) four times:
    three raw uint8 bodies and one PNG. Launch counts are set to 0 just
    before each model's requests and read just after: every corner
-   request must launch the kernel exactly four times (top and left in
-   tl_head, bottom and right in br_head), the centerOffset requests never.
-   Detections must be non-empty, inside the slide and the same on every
-   request; two forwards of the slide's clips must agree bit for bit
-   (serving is deterministic). Two of the clips then go through the same
-   model on the CPU, and the card's decode rows must match the CPU's
-   (tolerances at ``compare_rows``);
-4. holds the heatmap-render kernel (``csrc/render_heatmap.cu``) against
-   its plain version at exp74's shape, 32 clips x 30 loc records ->
-   128x128, on the archive's records plus edge cases (overlapping
-   objects, invalid lanes, a clip with no objects, centers in (-1, 0) and
-   at S - 1, zero-size objects), and at the validation pre-render's
-   shape: max abs error <= 1e-6, the same pixels at exactly 1.0, every
-   valid center a peak of 1.0. It times the kernel and the plain version;
-   no single PyTorch call computes the render, so it has no library time;
-5. trains ``centerOffsetRes10`` at exp74's widths (512x512 clips, batch
+   request must launch the corner-pool kernel exactly four times (top and
+   left in tl_head, bottom and right in br_head), the centerOffset
+   requests never, and no request any other kernel. Detections must be
+   non-empty, inside the slide and the same on every request; two
+   forwards of the slide's clips must agree bit for bit (serving is
+   deterministic). Two of the clips then go through the same model on
+   the CPU, and the card's decode rows must match the CPU's (tolerances
+   at ``compare_rows``);
+6. holds the heatmap-render kernel (``csrc/render_heatmap.cu``) against
+   its plain version at the train batch's shape, 32 clips x 30 loc
+   records -> 128x128, on the archive's records plus edge cases
+   (overlapping objects, invalid lanes, a clip with no objects, centers
+   in (-1, 0) and at S - 1, zero-size objects), and at the validation
+   pre-render's shape: the center variant within 1e-6 with the same
+   pixels at exactly 1.0 and every valid center a peak of 1.0; the
+   corner variant (corner radius, the tl and br offsets of the batch
+   transform, plus corners in (-1, 0), at S - 1 and beyond S) equal to
+   the bit. It times both variants and the plain versions; no single
+   PyTorch call computes the render, so they have no library time;
+7. trains ``centerOffsetRes10`` at exp74's widths (512x512 clips, batch
    32, bf16, Adam 1.25e-4) through ``python -m scd_resnet_tpu_torch.train``'s
    own entry function on the synthetic archive, with the cuts it prints
    (synthetic data, 40 iterations, validation every 20, a snapshot at
-   40), then resumes from that snapshot to iteration 60. The launch
-   counts are set to 0 just before and read just after: the render kernel
-   must have launched once per train step plus once per validation
-   pre-render chunk, exactly. Every loss must be finite, the mean focal
-   loss of the last 10 steps below that of the first 10, the [It] lines
-   must parse and the resumed run must start at iteration 41;
-6. takes one float32 train step at full width on 2 clips, augmentation
-   off, from the same weights on the card (render kernel) and on the CPU
-   (plain render): heat targets within 1e-6, loss within 1e-4 relative,
+   40), then resumes from that snapshot to iteration 60; then
+   ``cornerCPoolRes10`` under ``configs/cpool_best.json`` the same way.
+   The launch counts are set to 0 just before each model's first run and
+   read just after its resumed one, and must be exact: exp74 launches the
+   center render once a train step plus once per validation pre-render
+   chunk and the max-pool backward once a step; cpool_best launches the
+   center render and the two corner renders as often, the max-pool
+   backward once a step, the corner-pool forward four times a step and
+   four times in each validation forward ([Tr] included), the
+   corner-pool backward four times a step; each run no other kernel.
+   Every loss must be finite, the mean focal loss of the last 10 steps
+   below that of the first 10, the [It] lines must parse (mIoU, AP50 and
+   avgS for exp74; boxAP50 for cpool_best) and the resumed run must
+   start at iteration 41;
+8. takes one float32 train step at full width on 2 clips, augmentation
+   off, from the same weights on the card (the kernels) and on the CPU
+   (the plain versions), for ``centerOffsetRes10`` and
+   ``cornerCPoolRes10``: targets within 1e-6, loss within 1e-4 relative,
    global gradient norm within 1e-3 relative (float32 convolutions sum
-   in another order on the two devices);
-7. prints one ``{"kernels": [...]}`` line, the card's name and power
+   in another order on the two devices); for the corner model the
+   gradient of ``tl_head.pool_block.branch1.conv.weight``, which reaches
+   it only through the corner pools, must be non-zero and within 1e-3
+   relative too;
+9. prints one ``{"kernels": [...]}`` line, the card's name and power
    limit, and as the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
@@ -90,7 +123,11 @@ from scd_resnet_tpu_torch.core.config import Configuration
 from scd_resnet_tpu_torch.core.device import reproducible_float32
 from scd_resnet_tpu_torch.data.archive import read_archive
 from scd_resnet_tpu_torch.data.dataset import VALIDATION_CHUNK, SCDDataset
-from scd_resnet_tpu_torch.data.pipeline import THRESHOLD_IOU, identity_draws
+from scd_resnet_tpu_torch.data.pipeline import (
+    THRESHOLD_IOU,
+    corner_offsets,
+    identity_draws,
+)
 from scd_resnet_tpu_torch.data.synthetic import make_archive
 from scd_resnet_tpu_torch.infer.analyse import make_device_tiler
 from scd_resnet_tpu_torch.infer.server import create_server
@@ -98,21 +135,31 @@ from scd_resnet_tpu_torch.infer.synthetic import seeded_model, synthetic_slide
 from scd_resnet_tpu_torch.infer.wrapper import make_wrapper
 from scd_resnet_tpu_torch.ops import corner_pool as cp
 from scd_resnet_tpu_torch.ops import gaussian
+from scd_resnet_tpu_torch.ops import max_pool as mp
+from scd_resnet_tpu_torch.ops.radius import corner_threshold_radius
 from scd_resnet_tpu_torch.profile_serve import device_ms
-from scd_resnet_tpu_torch.profile_train import EXP74_ARCHIVE, exp74_settings
+from scd_resnet_tpu_torch.profile_train import (
+    CPOOL_BEST,
+    EXP74,
+    SYNTHETIC_ARCHIVE,
+    settings,
+)
 from scd_resnet_tpu_torch.train import __main__ as train_cli
 from scd_resnet_tpu_torch.train.factory import NetworkFactory, parse_metric_line
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SLIDE_W, SLIDE_H = 3092, 2056
 POOL_SHAPE = (48, 128, 128, 128)  # what the served corner heads pool
+POOL_TRAIN_SHAPE = (32, 128, 128, 128)  # what cpool_best's heads pool
+STEM_SHAPE = (32, 64, 256, 256)  # the stem pool's input in a train step
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12  # H100 SXM data sheet, float32 outside tensor cores
 REQUESTS = 4  # per model: three raw bodies, one PNG
 DIRECTIONS = {"top": (2, True), "bottom": (2, False),
               "left": (3, True), "right": (3, False)}
 EDGE_SHAPES = ((2, 3, 37, 45), (1, 2, 1, 33), (1, 2, 70, 1))
-KERNEL_SOURCES = ("corner_pool.cu", "render_heatmap.cu")
+STEM_EDGE_SHAPES = ((2, 3, 37, 45), (1, 2, 1, 1), (1, 2, 6, 7), (1, 1, 2, 3))
+KERNEL_SOURCES = ("corner_pool.cu", "render_heatmap.cu", "max_pool_bwd.cu")
 
 CLIP, HEAT, BATCH = 512, 128, 32  # exp74: clip side, heatmap side, batch
 TRAIN_ITERS, RESUME_ITERS, VALIDATE_EVERY = 40, 60, 20
@@ -194,33 +241,223 @@ def check_corner_pool():
     return results, bound_ms
 
 
-def corner_pool_entries(results, bound_ms, launches):
-    """One entry per __global__ kernel: corner_pool_h serves top/bottom,
-    corner_pool_w left/right; times are the mean of its two directions,
-    ``library_ms`` is torch.cummax in the forward direction."""
+def pool_entries(names, replaces, shape, results, bound_ms, launches,
+                 library=None):
+    """One entry per __global__ kernel of ``names`` (dim -> name): the H
+    kernel serves top/bottom, the W kernel left/right; times are the mean
+    of its two directions. ``library`` (the forward's ``torch.cummax``)
+    gives ``library_ms`` in the forward direction."""
     entries = []
-    for dim, name in sorted(cp.KERNEL_NAMES.items()):
+    for dim, name in sorted(names.items()):
         dirs = [d for d, (dd, _) in DIRECTIONS.items() if dd == dim]
-        fwd = [d for d in dirs if not DIRECTIONS[d][1]][0]
         mean = lambda key: sum(results[d][key] for d in dirs) / len(dirs)  # noqa: E731
-        entries.append({
+        entry = {
             "name": name, "route": "cuda",
             "source": "scd_resnet_tpu_torch/csrc/corner_pool.cu",
-            "replaces": "scd_resnet_tpu/ops/pallas_kernels.py:260",
-            "launches": launches[name],
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(results[d]["max_abs_err"] for d in dirs),
-            "ms": mean("ms"), "kernel_ms": mean("ms"),
-            "plain_ms": mean("plain_ms"),
-            "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": results[fwd]["library_ms"],
-            "library_call": "torch.cummax(x, {}) ({})".format(dim, fwd),
-            "shape": list(POOL_SHAPE),
+            "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+            "shape": list(shape),
             "ms_by_direction": {d: results[d]["ms"] for d in dirs},
-        })
+        }
+        if library:
+            fwd = [d for d in dirs if not DIRECTIONS[d][1]][0]
+            entry["library_ms"] = results[fwd]["library_ms"]
+            entry["library_call"] = "torch.cummax(x, {}) ({})".format(dim, fwd)
+        else:
+            entry["library_note"] = ("torch.cummax's backward routes ties "
+                                     "to the last element: another function")
+        entries.append(entry)
     return entries
 
 
-# -- 3. serving ---------------------------------------------------------------
+# -- 3. the corner-pool backward against its plain version ----------------------
+
+def summation_bound(g: torch.Tensor, dim: int) -> torch.Tensor:
+    """How far two float32 suffix sums of ``g`` along ``dim`` in other
+    orders may lie apart: each is within (n - 1) 2^-24 sum|g| of the exact
+    sum (the recursive-summation bound)."""
+    n = g.shape[dim]
+    return 2 * (n - 1) * 2.0 ** -24 * g.abs().sum(dim, keepdim=True)
+
+
+def compare_pool_bwd(x, g, dim, reverse, what, zero_pattern=True) -> float:
+    got = cp.corner_pool_bwd(x, g, dim, reverse)
+    torch.cuda.synchronize()
+    ref = cp.corner_pool_bwd_plain(x, g, dim, reverse)
+    if zero_pattern and not torch.equal(got == 0, ref == 0):
+        raise AssertionError("corner_pool_bwd {}: the zero patterns (the "
+                             "routing) differ".format(what))
+    err = (got - ref).abs()
+    if bool((err > summation_bound(g, dim)).any()) or \
+            not torch.equal(got.isnan(), ref.isnan()):
+        raise AssertionError("corner_pool_bwd {}: beyond the float32 "
+                             "summation bound, max abs {}".format(
+                                 what, err.nan_to_num().max().item()))
+    return err.nan_to_num().max().item()
+
+
+def check_corner_pool_bwd():
+    """Phase 3: the backward kernel against its plain version; its times,
+    and the forward's at the training shape."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shape = POOL_TRAIN_SHAPE
+    inputs = {
+        "random": torch.randn(shape, device="cuda", generator=gen),
+        "ties": torch.randint(-3, 4, shape, device="cuda",
+                              generator=gen).float().clamp_min_(0),
+    }
+    # positive, at least 0.5: no segment sum cancels to 0
+    g = torch.rand(shape, device="cuda", generator=gen).add_(0.5)
+    g_signed = torch.randn(shape, device="cuda", generator=gen)
+    numel = g.numel()
+    bound_ms = max(3 * numel * 4 / HBM_BYTES_PER_S,
+                   3 * numel / FP32_OPS_PER_S) * 1e3
+    results = {}
+    for direction, (dim, reverse) in DIRECTIONS.items():
+        err = 0.0
+        for kind, x in inputs.items():
+            err = max(err, compare_pool_bwd(x, g, dim, reverse, "{} {}".format(
+                direction, kind)))
+            err = max(err, compare_pool_bwd(x, g_signed, dim, reverse,
+                                            "{} {} signed g".format(
+                                                direction, kind),
+                                            zero_pattern=False))
+        x = inputs["random"]
+        results[direction] = {
+            "max_abs_err": err,
+            "ms": time_ms(lambda: cp.corner_pool_bwd(x, g, dim, reverse)),
+            "plain_ms": time_ms(lambda: cp.corner_pool_bwd_plain(
+                x, g, dim, reverse)),
+            "forward_ms": time_ms(lambda: cp.corner_pool(x, dim, reverse)),
+        }
+        log("corner_pool_bwd {:6s} at {}: routing equal, max abs {:.3g}; "
+            "kernel {:.4f} ms, plain {:.4f} ms, bound {:.4f} ms; forward "
+            "kernel {:.4f} ms".format(
+                direction, shape, err, results[direction]["ms"],
+                results[direction]["plain_ms"], bound_ms,
+                results[direction]["forward_ms"]))
+    del inputs, g, g_signed
+    torch.cuda.empty_cache()
+
+    for shape in EDGE_SHAPES:
+        x = torch.randint(-3, 4, shape, device="cuda",
+                          generator=gen).float().clamp_min_(0)
+        x[torch.rand(shape, device="cuda", generator=gen) > 0.97] = \
+            float("nan")
+        g = torch.rand(shape, device="cuda", generator=gen).add_(0.5)
+        for direction, (dim, reverse) in DIRECTIONS.items():
+            compare_pool_bwd(x, g, dim, reverse, "{} at {}".format(
+                direction, shape))
+    log("corner_pool_bwd routing equal at edge shapes {} with ties and NaN "
+        "inputs".format(list(EDGE_SHAPES)))
+    return results, bound_ms
+
+
+# -- 4. the stem max-pool backward against its plain version -----------------------
+
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bfloat16 ulp at each value (0 at 0): 8 significant bits."""
+    _, exponent = torch.frexp(v.float())
+    return torch.where(v == 0, torch.zeros_like(v.float()),
+                       torch.ldexp(torch.ones_like(v.float()),
+                                   exponent - 8))
+
+
+def compare_stem_bwd(x, dy, what) -> float:
+    got = mp.max_pool_3x3_s2_bwd(x, dy)
+    torch.cuda.synchronize()
+    ref = mp.max_pool_3x3_s2_bwd_plain(x, dy)
+    if not torch.equal(got == 0, ref == 0):
+        raise AssertionError("max_pool_3x3_s2_bwd {}: the zero patterns "
+                             "differ".format(what))
+    err = (got.float() - ref.float()).abs()
+    tol = bf16_ulp(ref) if x.dtype == torch.bfloat16 else \
+        1e-6 * ref.float().abs()
+    if bool((err > tol).any()):
+        raise AssertionError("max_pool_3x3_s2_bwd {}: max abs {}".format(
+            what, err.max().item()))
+    return err.max().item()
+
+
+def check_max_pool_bwd():
+    """Phase 4: the stem pool's backward kernel against its plain version;
+    the kernel's, the plain version's and PyTorch's times in bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    b, c, h, w = STEM_SHAPE
+    out_shape = (b, c, mp.output_size(h), mp.output_size(w))
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dy = torch.randn(out_shape, device="cuda", generator=gen).to(dtype)
+        for kind in ("random", "ties"):
+            if kind == "random":
+                x = torch.randn(STEM_SHAPE, device="cuda", generator=gen)
+            else:  # ReLU'd small integers: ties and zeros everywhere
+                x = torch.randint(-2, 3, STEM_SHAPE, device="cuda",
+                                  generator=gen).float().clamp_min_(0)
+            x = x.to(dtype)
+            errs[(dtype, kind)] = compare_stem_bwd(x, dy, "{} {}".format(
+                dtype, kind))
+            del x
+        del dy
+        torch.cuda.empty_cache()
+    for shape in STEM_EDGE_SHAPES:
+        x = torch.randint(-2, 3, shape, device="cuda",
+                          generator=gen).float().clamp_min_(0)
+        dy = torch.randn((*shape[:2], mp.output_size(shape[2]),
+                          mp.output_size(shape[3])), device="cuda",
+                         generator=gen)
+        for dtype in (torch.bfloat16, torch.float32):
+            compare_stem_bwd(x.to(dtype), dy.to(dtype), "at {}".format(shape))
+
+    x = torch.randn(STEM_SHAPE, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    dy = torch.randn(out_shape, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    indices = torch.ops.aten.max_pool2d_with_indices(x, [3, 3], [2, 2],
+                                                     [1, 1])[1]
+    n_bytes = (2 * x.numel() + dy.numel()) * x.element_size()
+    result = {
+        "max_abs_err": max(errs.values()),
+        "max_abs_err_by_type": {"{} {}".format(str(d).split(".")[-1], k): e
+                                for (d, k), e in errs.items()},
+        "ms": time_ms(lambda: mp.max_pool_3x3_s2_bwd(x, dy)),
+        "plain_ms": time_ms(lambda: mp.max_pool_3x3_s2_bwd_plain(x, dy)),
+        "library_ms": time_ms(
+            lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                dy, x, [3, 3], [2, 2], [1, 1], [1, 1], False, indices)),
+        "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+    }
+    log("max_pool_3x3_s2_bwd at {} bf16 and float32 and at edge shapes {}: "
+        "zero patterns equal, max abs {}; bf16 kernel {:.4f} ms, plain "
+        "{:.4f} ms, max_pool2d_with_indices_backward {:.4f} ms, bound "
+        "{:.4f} ms".format(STEM_SHAPE, list(STEM_EDGE_SHAPES),
+                           result["max_abs_err_by_type"], result["ms"],
+                           result["plain_ms"], result["library_ms"],
+                           result["bound_ms"]))
+    del x, dy, indices
+    torch.cuda.empty_cache()
+    return result
+
+
+def max_pool_bwd_entry(result, launches):
+    return {
+        "name": mp.KERNEL_NAME, "route": "cuda",
+        "source": "scd_resnet_tpu_torch/csrc/max_pool_bwd.cu",
+        "replaces": "tools/pool_bwd_pallas_probe.py:120",
+        "launches": launches, "max_abs_err": result["max_abs_err"],
+        "ms": result["ms"], "plain_ms": result["plain_ms"],
+        "bound_ms": result["bound_ms"], "bound_by": result["bound_by"],
+        "library_ms": result["library_ms"],
+        "library_call": "torch.ops.aten.max_pool2d_with_indices_backward "
+                        "(bf16, indices from its forward)",
+        "shape": list(STEM_SHAPE), "dtype": "bfloat16",
+        "max_abs_err_by_type": result["max_abs_err_by_type"],
+    }
+
+
+# -- 5. serving ---------------------------------------------------------------
 
 def compare_rows(family, gpu_rows, cpu_rows):
     """Card against CPU on the same clips, both in exact float32 (TF32
@@ -286,9 +523,11 @@ def serve_model(arch: str, seed: int, slide, build_dir, card: str,
                                  "X-Height": str(height)})] * (REQUESTS - 1)
     bodies.append((png.getvalue(), {}))
     family = service.contract
-    # top and left pools in tl_head, bottom and right in br_head
-    per_request = {name: 2 if family == "corner" else 0
-                   for name in cp.KERNEL_NAMES.values()}
+    # top and left pools in tl_head, bottom and right in br_head; no other
+    # kernel
+    per_request = {name: 2 if family == "corner"
+                   and name in cp.KERNEL_NAMES.values() else 0
+                   for name in cuda_build.LAUNCHES}
     latencies, counts = [], []
     try:
         cuda_build.reset_launches()
@@ -347,7 +586,7 @@ def serve_model(arch: str, seed: int, slide, build_dir, card: str,
             "launches": launches}
 
 
-# -- 4. the render kernel against its plain version -----------------------------
+# -- 6. the render kernel against its plain version -----------------------------
 
 def start_archive(path: str):
     """Write the synthetic training archive in a subprocess unless it is
@@ -355,7 +594,7 @@ def start_archive(path: str):
     if os.path.exists(path):
         return None
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    spec = EXP74_ARCHIVE
+    spec = SYNTHETIC_ARCHIVE
     return subprocess.Popen(
         [sys.executable, "-m", "scd_resnet_tpu_torch.data.synthetic",
          path + ".tmp", "--images", str(spec["num_images"]),
@@ -375,7 +614,8 @@ def finish_archive(proc, path: str) -> None:
 
 def render_edge_cases(locs: torch.Tensor, counts: torch.Tensor):
     """(B, K, 8) archive records and their counts -> (locs, valid) with
-    the edge cases written into clips 0-4."""
+    the edge cases written into clips 0-5: clip 5 holds objects whose
+    corners fall in (-1, 0), at S - 1 and beyond S."""
     locs = locs.clone()
     k = locs.shape[1]
     valid = torch.arange(k)[None, :] < counts[:, None]
@@ -396,16 +636,30 @@ def render_edge_cases(locs: torch.Tensor, counts: torch.Tensor):
     valid[3, :4] = True
     locs[4, 8:] = torch.randn(locs[4, 8:].shape,
                               generator=torch.Generator().manual_seed(4)) * 50
+    # center, major axis (x, y) and minor axis: the top-left corner at
+    # center - (|maj|, minL), the bottom-right one at center + (|maj|, minL)
+    corners = ((3.0, 4.0, 3.5, 0.0, 3.6),      # tl x -0.5, y 0.4
+               (2.0, 2.5, 0.0, 2.6, 3.0),      # tl in (-1, 0) both ways
+               (HEAT - 4.0, HEAT - 5.0, 3.0, 0.0, 4.0),  # br at S - 1
+               (HEAT - 2.0, 60.0, 1.5, 1.5, 2.0),        # br beyond S
+               (10.0, 10.0, 0.0, 0.0, 0.0))    # zero size
+    for i, (x, y, mx, my, mn) in enumerate(corners):
+        locs[5, i] = first
+        locs[5, i, 0], locs[5, i, 1] = x, y
+        locs[5, i, 4], locs[5, i, 5], locs[5, i, 6] = mx, my, mn
+    valid[5, :len(corners)] = True
     return locs, valid
 
 
-def render_bound_ms(locs: torch.Tensor, valid: torch.Tensor, size: int):
-    """The least time for the render on these inputs: locs, valid and the
-    heatmap each cross memory once; the operations are those of the
-    (pixel, object) terms inside a valid object's box, as this data needs
-    them, plus one clamp per pixel. Returns (ms, "bytes"|"operations")."""
-    cx, cy, ok, roi, _ = gaussian.object_geometry(locs, valid, size,
-                                                  THRESHOLD_IOU)
+def render_bound_ms(locs: torch.Tensor, valid: torch.Tensor, size: int,
+                    radius_fn=None, position_offset=None):
+    """The least time for the render on these inputs: locs, valid (and
+    the offsets) and the heatmap each cross memory once; the operations
+    are those of the (pixel, object) terms inside a valid object's box,
+    as this data needs them, plus one clamp per pixel. Returns (ms,
+    "bytes"|"operations")."""
+    cx, cy, ok, roi, _ = gaussian.object_geometry(
+        locs, valid, size, THRESHOLD_IOU, radius_fn, position_offset)
 
     def span(c):
         return (torch.clamp(c + roi, max=size - 1)
@@ -414,6 +668,8 @@ def render_bound_ms(locs: torch.Tensor, valid: torch.Tensor, size: int):
     terms = int((span(cx) * span(cy) * ok).sum().item())
     pixels = locs.shape[0] * size * size
     n_bytes = locs.numel() * 4 + valid.numel() + pixels * 4
+    if position_offset is not None:
+        n_bytes += position_offset.numel() * 4
     n_ops = terms * RENDER_OPS_PER_TERM + pixels
     byte_ms, op_ms = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
@@ -429,10 +685,45 @@ def compare_heat(got: torch.Tensor, ref: torch.Tensor, what: str) -> float:
     return err
 
 
+def time_render(l, v, offsets=None):
+    """Device times of the C entry point launched back to back (a Python
+    wrapper call takes longer to issue than the kernel takes to run, so
+    timing the wrapper in a loop would time the host), of the wrapper as
+    the batch transform calls it, and of the plain version."""
+    kwargs = {} if offsets is None else {
+        "radius_fn": corner_threshold_radius, "position_offset": offsets}
+    v8 = v.to(torch.uint8)
+    heat = torch.empty((l.shape[0], HEAT, HEAT), device="cuda")
+    lib = gaussian.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    offset_ptr = None if offsets is None else offsets.data_ptr()
+
+    def launch():
+        return lib.render_heatmap_f32(l.data_ptr(), v8.data_ptr(), offset_ptr,
+                                      heat.data_ptr(), l.shape[0], l.shape[1],
+                                      HEAT, THRESHOLD_IOU, stream)
+
+    cuda_build.check(lib, launch(), "render_heatmap_f32")
+    bound_ms, bound_by = render_bound_ms(l, v, HEAT, **kwargs)
+    result = {
+        "ms": device_ms(launch, 500, warmup=10),
+        "wrapper_ms": device_ms(lambda: gaussian.render_heatmap(
+            l, v, HEAT, THRESHOLD_IOU, **kwargs), 200, warmup=10),
+        "plain_ms": device_ms(lambda: gaussian.render_heatmap_plain(
+            l, v, HEAT, THRESHOLD_IOU, **kwargs), 20, warmup=2),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    if not torch.equal(heat, gaussian.render_heatmap(l, v, HEAT,
+                                                     THRESHOLD_IOU, **kwargs)):
+        raise AssertionError("render_heatmap: direct launches differ")
+    return result
+
+
 def check_render(archive: str):
-    """The render kernel against its plain version on the card at the
-    train batch's shape (with the edge cases) and at the validation
-    pre-render's; then its times and bound at the train shape."""
+    """The render kernel's center and corner variants against their plain
+    versions on the card at the train batch's shape (with the edge cases)
+    and at the validation pre-render's; then their times and bounds at the
+    train shape."""
     _, _, all_locs, all_counts = read_archive(archive)
     all_locs, all_counts = (torch.from_numpy(all_locs),
                             torch.from_numpy(all_counts))
@@ -457,101 +748,131 @@ def check_render(archive: str):
         if not bool((peaks == 1.0).all()):
             raise AssertionError("render_heatmap {}: a valid center is not "
                                  "1.0".format(name))
-        log("render_heatmap {}: {} -> {} matches its plain version (max abs "
-            "{:.3g}), {} centers at exactly 1.0".format(
-                name, tuple(l.shape), tuple(got.shape), err, int(ok.sum())))
+        stamped = {}
+        for corner, offset in zip(("tl", "br"), corner_offsets(l)):
+            got = gaussian.render_heatmap(
+                l, v, HEAT, THRESHOLD_IOU, radius_fn=corner_threshold_radius,
+                position_offset=offset)
+            torch.cuda.synchronize()
+            ref = gaussian.render_heatmap_plain(
+                l, v, HEAT, THRESHOLD_IOU, radius_fn=corner_threshold_radius,
+                position_offset=offset)
+            if not torch.equal(got, ref):
+                raise AssertionError("render_heatmap {} {} corners differ "
+                                     "from the plain version by {}".format(
+                                         name, corner,
+                                         (got - ref).abs().max().item()))
+            stamped[corner] = int((got == 1.0).sum())
+        log("render_heatmap {}: {} -> {} center variant matches its plain "
+            "version (max abs {:.3g}), {} centers at exactly 1.0; corner "
+            "variant equal to the bit ({} tl and {} br pixels at 1.0)".format(
+                name, tuple(l.shape), tuple(got.shape), err, int(ok.sum()),
+                stamped["tl"], stamped["br"]))
+    if not bool((gaussian.render_heatmap(
+            locs[5:6].cuda(), valid[5:6].cuda(), HEAT, THRESHOLD_IOU,
+            radius_fn=corner_threshold_radius,
+            position_offset=corner_offsets(locs[5:6].cuda())[0])[0, 0, 0]
+            == 1.0)):
+        raise AssertionError("render_heatmap: a corner in (-1, 0) is not "
+                             "stamped at 0")
 
     l, v = locs.cuda(), valid.cuda()
-    v8 = v.to(torch.uint8)
-    heat = torch.empty((BATCH, HEAT, HEAT), device="cuda")
-    lib = gaussian.library()
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def launch():
-        """The C entry point alone: a Python wrapper call takes longer to
-        issue than the kernel takes to run, so timing the wrapper in a
-        loop would time the host."""
-        return lib.render_heatmap_f32(l.data_ptr(), v8.data_ptr(),
-                                      heat.data_ptr(), BATCH, l.shape[1],
-                                      HEAT, THRESHOLD_IOU, stream)
-
-    cuda_build.check(lib, launch(), "render_heatmap_f32")
-    bound_ms, bound_by = render_bound_ms(l, v, HEAT)
-    result = {
-        "max_abs_err": err,
-        "ms": device_ms(launch, 500, warmup=10),
-        "wrapper_ms": device_ms(lambda: gaussian.render_heatmap(l, v, HEAT),
-                                200, warmup=10),
-        "plain_ms": device_ms(lambda: gaussian.render_heatmap_plain(
-            l, v, HEAT, THRESHOLD_IOU), 20, warmup=2),
-        "bound_ms": bound_ms, "bound_by": bound_by,
-    }
-    if not torch.equal(heat, gaussian.render_heatmap(l, v, HEAT)):
-        raise AssertionError("render_heatmap: direct launches differ")
-    log("render_heatmap at {}: kernel {:.4f} ms (the wrapper, as the batch "
-        "transform calls it, {:.4f} ms), plain {:.4f} ms, bound {:.6f} ms "
-        "({})".format(
-            tuple(locs.shape), result["ms"], result["wrapper_ms"],
-            result["plain_ms"], bound_ms, bound_by))
-    return result
+    result = time_render(l, v)
+    result["max_abs_err"] = err
+    corner = time_render(l, v, corner_offsets(l)[1].contiguous())
+    corner["max_abs_err"] = 0.0
+    for what, r in (("center", result), ("corner", corner)):
+        log("render_heatmap {} variant at {}: kernel {:.4f} ms (the wrapper, "
+            "as the batch transform calls it, {:.4f} ms), plain {:.4f} ms, "
+            "bound {:.6f} ms ({})".format(
+                what, tuple(locs.shape), r["ms"], r["wrapper_ms"],
+                r["plain_ms"], r["bound_ms"], r["bound_by"]))
+    return result, corner
 
 
-def render_entry(result, launches):
-    return {
-        "name": gaussian.KERNEL_NAME, "route": "cuda",
-        "source": "scd_resnet_tpu_torch/csrc/render_heatmap.cu",
-        "replaces": "scd_resnet_tpu/ops/pallas_kernels.py:77",
-        "launches": launches, "max_abs_err": result["max_abs_err"],
-        "ms": result["ms"], "wrapper_ms": result["wrapper_ms"],
-        "plain_ms": result["plain_ms"],
-        "bound_ms": result["bound_ms"], "bound_by": result["bound_by"],
-        "library_ms": None, "shape": [BATCH, 30, 8, HEAT],
-    }
+def render_entries(center, corner, launches):
+    entries = []
+    for name, result in ((gaussian.KERNEL_NAME, center),
+                         (gaussian.CORNER_KERNEL_NAME, corner)):
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "scd_resnet_tpu_torch/csrc/render_heatmap.cu",
+            "replaces": "scd_resnet_tpu/ops/pallas_kernels.py:77",
+            "launches": launches[name], "max_abs_err": result["max_abs_err"],
+            "ms": result["ms"], "wrapper_ms": result["wrapper_ms"],
+            "plain_ms": result["plain_ms"],
+            "bound_ms": result["bound_ms"], "bound_by": result["bound_by"],
+            "library_ms": None,
+            "library_note": "no single PyTorch call renders the heatmap",
+            "shape": [BATCH, 30, 8, HEAT],
+        })
+    return entries
 
 
-# -- 5. training exp74 ------------------------------------------------------------
+# -- 7. training exp74 and cpool_best -------------------------------------------------
 
-def write_config(path: str, settings) -> str:
+def write_config(path: str, values) -> str:
     with open(path, "w") as f:
-        json.dump(settings, f, indent=1)
+        json.dump(values, f, indent=1)
     return path
 
 
-def train_exp74(data_dir: str, work: str, device: str = "cuda", **overrides):
-    """Train exp74 with the smoke's cuts through the train entry point,
-    then resume it; every check of phase 5 in the module docstring."""
+def expected_launches(config, steps: int, n_val: int):
+    """What the train runs of ``config`` (a first run and its resume, each
+    rendering the validation set once) must launch, kernel by kernel."""
+    chunks = 2 * math.ceil(n_val / VALIDATION_CHUNK)
+    expected = {name: 0 for name in cuda_build.LAUNCHES}
+    expected[gaussian.KERNEL_NAME] = steps + chunks
+    expected[mp.KERNEL_NAME] = steps
+    if config["modelName"].startswith("cornerCPool"):
+        batch = config["validationBatchSize"]
+        per_validation = 1 + (1 if n_val <= batch else n_val // batch)
+        forwards = steps + steps // config["validation"] * per_validation
+        expected[gaussian.CORNER_KERNEL_NAME] = 2 * (steps + chunks)
+        for dim in cp.KERNEL_NAMES:
+            expected[cp.KERNEL_NAMES[dim]] = 2 * forwards
+            expected[cp.BWD_KERNEL_NAMES[dim]] = 2 * steps
+    return expected
+
+
+def train_config(config: str, data_dir: str, work: str, metrics,
+                 device: str = "cuda", **overrides):
+    """Train ``config`` with the smoke's cuts through the train entry
+    point, then resume it; every check of phase 7 in the module
+    docstring."""
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     cuts = {"iterations": TRAIN_ITERS, "validation": VALIDATE_EVERY,
-            "snapshot": TRAIN_ITERS, "bestSnapshotMetric": "mIoU"}
+            "snapshot": TRAIN_ITERS, "bestSnapshotMetric": metrics[0]}
     cuts.update(overrides)
-    settings = exp74_settings(data_dir, work, **cuts)
-    spec = EXP74_ARCHIVE
-    log("exp74 cuts: {} synthetic {}x{} clips (seed {}) for the "
-        "scdx16p100 archive; {}; resumed to {}".format(
-            spec["num_images"] * spec["reps"] * spec["clips_per_image"],
+    values = settings(config, data_dir, work, **cuts)
+    spec = SYNTHETIC_ARCHIVE
+    arch = values["modelName"]
+    log("{} cuts: {} synthetic {}x{} clips (seed {}) for the scdx16p100 "
+        "archive; {}; resumed to {}".format(
+            arch, spec["num_images"] * spec["reps"] * spec["clips_per_image"],
             spec["size"], spec["size"], spec["seed"], cuts, RESUME_ITERS))
-    name = settings["trainName"]
+    name = values["trainName"]
     results = os.path.join(work, "results")
 
     cuda_build.reset_launches()
     first = train_cli.main([write_config(os.path.join(work, "first.json"),
-                                         settings), "--device", device])
+                                         values), "--device", device])
     evals = open(os.path.join(results, "evals.{}.txt".format(name))).read()
     it_lines = [line for line in evals.splitlines() if line.startswith("[It]")]
     if len(it_lines) != TRAIN_ITERS // VALIDATE_EVERY:
         raise AssertionError("expected {} [It] lines, got {}".format(
             TRAIN_ITERS // VALIDATE_EVERY, it_lines))
     for line in it_lines:
-        for metric in ("mIoU", "AP50", "avgS"):
+        for metric in metrics:
             if parse_metric_line(line, metric) is None:
                 raise AssertionError("[It] line without {}: {}".format(
                     metric, line))
     second = train_cli.main([write_config(
         os.path.join(work, "resume.json"),
-        dict(settings, currentIter=TRAIN_ITERS, iterations=RESUME_ITERS)),
+        dict(values, currentIter=TRAIN_ITERS, iterations=RESUME_ITERS)),
         "--device", device])
-    launches = cuda_build.LAUNCHES[gaussian.KERNEL_NAME]
+    launches = dict(cuda_build.LAUNCHES)
 
     rows = [np.loadtxt(os.path.join(results, "losses.{}.{}.txt".format(
         name, it)), delimiter=",", ndmin=2) for it in (TRAIN_ITERS,
@@ -561,7 +882,7 @@ def train_exp74(data_dir: str, work: str, device: str = "cuda", **overrides):
         raise AssertionError("the resumed run did not start at iteration "
                              "{}: {}".format(TRAIN_ITERS + 1, rows[1][:1]))
     losses = np.concatenate(rows)
-    if losses.shape != (RESUME_ITERS, 5) or not np.isfinite(losses).all():
+    if losses.shape[0] != RESUME_ITERS or not np.isfinite(losses).all():
         raise AssertionError("loss rows missing or not finite")
     focal = losses[:, 2]
     if not focal[-10:].mean() < focal[:10].mean():
@@ -569,22 +890,21 @@ def train_exp74(data_dir: str, work: str, device: str = "cuda", **overrides):
                              "10 {}".format(focal[:10], focal[-10:]))
     with open(os.path.join(data_dir, "scdx16p100.split.json")) as f:
         n_val = len(json.load(f)["validation"])
-    # each run renders the validation set once, when it first validates
-    expected = RESUME_ITERS + 2 * math.ceil(n_val / VALIDATION_CHUNK)
-    log("exp74: {} + {} steps, losses finite, focal {:.4f} (first 10) -> "
-        "{:.4f} (last 10); [It] at {}: mIoU {}; train clips/s {:.1f} and "
+    expected = expected_launches(values, RESUME_ITERS, n_val)
+    log("{}: {} + {} steps, losses finite, focal {:.4f} (first 10) -> "
+        "{:.4f} (last 10); [It] at {}: {} {}; train clips/s {:.1f} and "
         "{:.1f} (validation, snapshots and cuDNN autotuning included); "
-        "render launches {} (expected {})".format(
-            first["steps"], second["steps"], focal[:10].mean(),
-            focal[-10:].mean(), TRAIN_ITERS,
-            parse_metric_line(it_lines[-1], "mIoU"), first["clips_per_s"],
-            second["clips_per_s"], launches, expected))
+        "launches {} (expected {})".format(
+            arch, first["steps"], second["steps"], focal[:10].mean(),
+            focal[-10:].mean(), TRAIN_ITERS, metrics[0],
+            parse_metric_line(it_lines[-1], metrics[0]),
+            first["clips_per_s"], second["clips_per_s"], launches, expected))
     if launches != expected:
-        raise AssertionError("render_heatmap launched {} times, expected {} "
-                             "({} train steps + {} validation chunks)".format(
-                                 launches, expected, RESUME_ITERS,
-                                 expected - RESUME_ITERS))
-    return {"steps": [first["steps"], second["steps"]],
+        raise AssertionError("{}: the kernels launched {}, expected {} ({} "
+                             "train steps, {} validation clips)".format(
+                                 arch, launches, expected, RESUME_ITERS,
+                                 n_val))
+    return {"arch": arch, "steps": [first["steps"], second["steps"]],
             "clips_per_s": [first["clips_per_s"], second["clips_per_s"]],
             "seconds": [first["seconds"], second["seconds"]],
             "focal_first10": float(focal[:10].mean()),
@@ -592,14 +912,17 @@ def train_exp74(data_dir: str, work: str, device: str = "cuda", **overrides):
             "it_line": it_lines[-1].strip(), "launches": launches}
 
 
-# -- 6. one float32 step, card against CPU ------------------------------------------
+# -- 8. one float32 step, card against CPU ------------------------------------------
 
 def global_grad_norm(model) -> float:
     return math.sqrt(sum(float(p.grad.double().pow(2).sum())
                          for p in model.parameters() if p.grad is not None))
 
 
-def step_card_vs_cpu(work: str):
+def step_card_vs_cpu(config: str, work: str, probe: str = None):
+    """One float32 step of ``config``'s model on 2 clips, card against
+    CPU; ``probe`` names a parameter whose gradient must be non-zero and
+    agree too."""
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     path = make_archive(os.path.join(work, "scdx16p100.d"), num_images=1,
@@ -610,9 +933,9 @@ def step_card_vs_cpu(work: str):
     factories = {}
     for device in ("cuda", "cpu"):
         cfg = Configuration()
-        cfg.update_config(exp74_settings(work, os.path.join(work, device),
-                                         precision="float32", batchSize=2,
-                                         residency="host"))
+        cfg.update_config(settings(config, work, os.path.join(work, device),
+                                   precision="float32", batchSize=2,
+                                   residency="host"))
         factories[device] = NetworkFactory(cfg, dataset=dataset, device=device)
     card, cpu = factories["cuda"], factories["cpu"]
     for key, value in cpu.model.state_dict().items():
@@ -622,20 +945,38 @@ def step_card_vs_cpu(work: str):
     for device, factory in factories.items():
         loss, _ = factory.train(*batch, draws=identity_draws(
             2, CLIP, factory.device))
-        out[device] = (loss.item(), factory._last_batch[1][0].cpu(),
-                       global_grad_norm(factory.model))
-    heat_err = compare_heat(out["cuda"][1], out["cpu"][1], "train-step heat")
+        grad = factory.model.get_parameter(probe).grad.cpu() if probe \
+            else None
+        out[device] = (loss.item(), factory._last_batch[1],
+                       global_grad_norm(factory.model), grad)
+    targets = [0, 4, 5] if card.profile.corner_targets else [0]
+    heat_err = max(compare_heat(out["cuda"][1][i].cpu(), out["cpu"][1][i],
+                                "train-step target {}".format(i))
+                   for i in targets)
     loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
     norm_rel = abs(out["cuda"][2] - out["cpu"][2]) / out["cpu"][2]
-    log("one float32 step of {} on 2 clips: heat max abs {:.3g}; loss card "
-        "{:.6f} cpu {:.6f} (rel {:.2e}); gradient norm card {:.6f} cpu {:.6f} "
-        "(rel {:.2e})".format(card.config.modelName, heat_err, out["cuda"][0], out["cpu"][0],
-                              loss_rel, out["cuda"][2], out["cpu"][2],
-                              norm_rel))
+    result = {"arch": card.config.modelName, "heat_max_abs": heat_err,
+              "loss_rel": loss_rel, "grad_norm_rel": norm_rel}
+    if probe:
+        g_card, g_cpu = out["cuda"][3], out["cpu"][3]
+        result["probe_grad_norm"] = float(g_card.norm())
+        result["probe_grad_rel"] = float((g_card - g_cpu).norm()
+                                         / g_cpu.norm())
+    log("one float32 step of {} on 2 clips: targets max abs {:.3g}; loss "
+        "card {:.6f} cpu {:.6f} (rel {:.2e}); gradient norm card {:.6f} cpu "
+        "{:.6f} (rel {:.2e}){}".format(
+            card.config.modelName, heat_err, out["cuda"][0], out["cpu"][0],
+            loss_rel, out["cuda"][2], out["cpu"][2], norm_rel,
+            "; {} gradient norm {:.6g} (rel {:.2e})".format(
+                probe, result["probe_grad_norm"], result["probe_grad_rel"])
+            if probe else ""))
     if not (loss_rel <= 1e-4 and norm_rel <= 1e-3):
         raise AssertionError("the card's step differs from the CPU's")
-    return {"heat_max_abs": heat_err, "loss_rel": loss_rel,
-            "grad_norm_rel": norm_rel}
+    if probe and not (result["probe_grad_norm"] > 0
+                      and result["probe_grad_rel"] <= 1e-3):
+        raise AssertionError("the gradient of {} on the card is zero or "
+                             "differs from the CPU's".format(probe))
+    return result
 
 
 def main() -> int:
@@ -657,6 +998,12 @@ def main() -> int:
     data_dir = os.path.join(build_dir, "data")
     archive = os.path.join(data_dir, "scdx16p100.d")
     writer = start_archive(archive)
+    phases = {}
+
+    def mark(name, t0):
+        phases[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
     try:
         # 1. build every kernel from the checkout's sources, in parallel
         t0 = time.perf_counter()
@@ -667,38 +1014,77 @@ def main() -> int:
         log("built {} in {:.1f}s; ptxas:\n{}".format(
             ", ".join(KERNEL_SOURCES), time.perf_counter() - t0,
             "\n".join(cuda_build.build_log(s) for s in KERNEL_SOURCES)))
+        t0 = mark("build", t0)
 
-        # 2. the corner-pool kernel against its plain version
-        results, bound_ms = check_corner_pool()
+        # 2-4. the corner-pool kernels and the stem pool's backward against
+        # their plain versions
+        pool_results, pool_bound = check_corner_pool()
+        bwd_results, bwd_bound = check_corner_pool_bwd()
+        stem = check_max_pool_bwd()
+        t0 = mark("kernel_checks", t0)
 
-        # 3. serve both models; each resets the counts just before its
+        # 5. serve both models; each resets the counts just before its
         # requests
         slide = synthetic_slide(SLIDE_H, SLIDE_W, seed=2056)
         served = [serve_model(arch, seed, slide, build_dir, gpu_line)
                   for arch, seed in (("cornerCPoolRes10", 10),
                                      ("centerOffsetRes10", 11))]
-        corner_launches = served[0]["launches"]
+        t0 = mark("serving", t0)
         finish_archive(writer, archive)
     finally:
         if writer is not None and writer.poll() is None:
             writer.kill()
             writer.wait()
 
-    # 4. the render kernel against its plain version
-    render = check_render(archive)
-    # 5. train exp74 and resume it; the counts are reset inside, just
-    # before the first run
-    trained = train_exp74(data_dir, os.path.join(build_dir, "train"))
-    # 6. one float32 step on the card and on the CPU
-    step = step_card_vs_cpu(os.path.join(build_dir, "step"))
+    # 6. the render kernel's variants against their plain versions
+    center, corner = check_render(archive)
+    t0 = mark("render_check", t0)
+    # 7. train exp74 and cpool_best and resume each; the counts are reset
+    # inside, just before each first run
+    trained = [train_config(EXP74, data_dir, os.path.join(build_dir, "exp74"),
+                            ("mIoU", "AP50", "avgS")),
+               train_config(CPOOL_BEST, data_dir,
+                            os.path.join(build_dir, "cpool_best"),
+                            ("boxAP50",))]
+    t0 = mark("training", t0)
+    # 8. one float32 step on the card and on the CPU, for each model
+    steps = [step_card_vs_cpu(EXP74, os.path.join(build_dir, "step_exp74")),
+             step_card_vs_cpu(CPOOL_BEST, os.path.join(build_dir,
+                                                       "step_cpool"),
+                              probe="tl_head.pool_block.branch1.conv.weight")]
+    mark("step_card_vs_cpu", t0)
 
-    # 7. results
+    # 9. results: launches are the cpool_best runs' (this slice's path);
+    # each entry also names every path's counts
+    paths = {"serve_cornerCPoolRes10": served[0]["launches"],
+             "train_exp74": trained[0]["launches"],
+             "train_cpool_best": trained[1]["launches"]}
+    main_path = trained[1]["launches"]
+    kernels = (render_entries(center, corner, main_path)
+               + pool_entries(cp.KERNEL_NAMES,
+                              "scd_resnet_tpu/ops/pallas_kernels.py:260",
+                              POOL_SHAPE, pool_results, pool_bound,
+                              main_path, library=True)
+               + pool_entries(cp.BWD_KERNEL_NAMES,
+                              "scd_resnet_tpu/ops/pallas_kernels.py:344",
+                              POOL_TRAIN_SHAPE, bwd_results, bwd_bound,
+                              main_path)
+               + [max_pool_bwd_entry(stem, main_path[mp.KERNEL_NAME])])
+    for entry in kernels:
+        entry["launches_by_path"] = {path: counts[entry["name"]]
+                                     for path, counts in paths.items()}
+    for entry in kernels:
+        if entry["name"] in cp.KERNEL_NAMES.values():
+            direction = [d for d, (dd, _) in DIRECTIONS.items()
+                         if cp.KERNEL_NAMES[dd] == entry["name"]]
+            entry["ms_train_shape"] = sum(
+                bwd_results[d]["forward_ms"] for d in direction) / len(
+                    direction)
+    phases["total"] = time.perf_counter() - t_start
     log(json.dumps({"serving": served, "training": trained,
-                    "step_card_vs_cpu": step, "card": gpu_line,
-                    "seconds": time.perf_counter() - t_start}))
-    log(json.dumps({"kernels": corner_pool_entries(results, bound_ms,
-                                                   corner_launches)
-                    + [render_entry(render, trained["launches"])]}))
+                    "step_card_vs_cpu": steps, "card": gpu_line,
+                    "seconds": phases}))
+    log(json.dumps({"kernels": kernels}))
     log(gpu_line)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

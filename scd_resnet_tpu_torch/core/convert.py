@@ -16,7 +16,10 @@ auto-names (``ResNetBackbone_0/Conv_0``, ``BasicBlock_k/BatchNorm_j``,
 
 For the ``centerOffset`` family the result carries the reference's names,
 the same dict ``scd_resnet_tpu/core/torch_convert.export_center_net_residual``
-writes.
+writes. ``cornerRes*`` and ``cornerCombinedRes*`` share that layout with
+their own heads (``heatmap``/``tl``/``br``, or one 3-channel
+``heatmap``); ``cornerCPoolRes*`` nests the backbone under
+``backbone.`` beside its center head and two corner-pool heads.
 """
 
 from __future__ import annotations
@@ -26,10 +29,22 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from scd_resnet_tpu_torch.models.center_net_offset import CenterNetResidual
+from scd_resnet_tpu_torch.models.corner_net import (
+    CornerNetCombined,
+    CornerNetCPoolResidual,
+    CornerNetResidual,
+)
 from scd_resnet_tpu_torch.models.resnet import RESNET_SPEC
 from scd_resnet_tpu_torch.train.registry import get_model_profile
 
 StateDict = Dict[str, torch.Tensor]
+# the terminal heads of each model that is a ResNetBackbone itself
+TERMINAL_HEADS = {
+    CenterNetResidual: ("heatmap", "regr", "offset"),
+    CornerNetResidual: ("heatmap", "tl", "br"),
+    CornerNetCombined: ("heatmap",),
+}
 
 
 def _tensor(value) -> torch.Tensor:
@@ -102,10 +117,12 @@ def _backbone(w: _Writer, prefix: str, num_layers: int) -> None:
              "BatchNorm_{}".format(j + 1))
 
 
-def _center_offset(root: _Writer, num_layers: int) -> None:
+def _terminal_heads(root: _Writer, num_layers: int, heads) -> None:
+    """A ``ResNetBackbone`` with terminal heads as the model itself
+    (``ResNetBackbone_0/{head}/Conv_{0,1}`` -> ``{head}.{0,2}``)."""
     w = root.sub("ResNetBackbone_0")
     _backbone(w, "", num_layers)
-    for head in ("heatmap", "regr", "offset"):
+    for head in heads:
         h = w.sub(head)
         h.conv(head + ".0", "Conv_0", bias=True)
         h.conv(head + ".2", "Conv_1", bias=True)
@@ -137,8 +154,9 @@ def state_dict_from_flax(arch: str, params: Mapping[str, Any],
     profile = get_model_profile(arch)
     sd: StateDict = {}
     root = _Writer(sd, params, batch_stats)
-    if profile.family == "centerOffset":
-        _center_offset(root, profile.num_layers)
-    else:  # the registry's only corner profiles are cornerCPoolRes*
+    if profile.model_cls is CornerNetCPoolResidual:
         _corner_cpool(root, profile.num_layers)
+    else:
+        _terminal_heads(root, profile.num_layers,
+                        TERMINAL_HEADS[profile.model_cls])
     return sd

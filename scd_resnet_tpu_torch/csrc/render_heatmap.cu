@@ -9,12 +9,18 @@
 // float32. Per object (ops/gaussian.render_heatmap_plain is the same
 // function in PyTorch):
 //
-//   cx, cy = trunc(ctX), trunc(ctY); ok = valid && 0 <= cx, cy < S
-//   r = center_threshold_radius(2 |maj|, 2 minL, iou), or 1 where !ok or
-//   r <= 0; roi = ceil(2r); sigma = r / 3
+//   cx, cy = trunc(ctX + offX'), trunc(ctY + offY'); ok = valid &&
+//   0 <= cx, cy < S
+//   r = radius(2 |maj|, 2 minL, iou), or 1 where !ok or r <= 0;
+//   roi = ceil(2r); sigma = r / 3
 //   heat += exp(-(dx^2 + dy^2) / (2 sigma^2)) where |dx|, |dy| <= roi
 //
-// and heat = min(heat, 1), so every center is exactly 1.0.
+// and heat = min(heat, 1), so every center is exactly 1.0. Two variants:
+// the center heatmap (radius = center_threshold_radius, no offset) and
+// the corner heatmaps (radius = corner_threshold_radius, the corner at
+// the center plus a (B, K, 2) float32 offset (offX', offY'), as the
+// JAX non-legacy corner branch renders its tl and br maps: a corner in
+// (-1, 0) truncates to 0 and is stamped there).
 //
 // What bounds it: at the training shape (32, 30, 8) -> 128^2 it writes
 // 2.1 MB and does 15.7 M pixel-object terms (an expf and ~10 flops each,
@@ -51,6 +57,7 @@ struct Consts {
   float minus_two_t;   // -2 t
   float t_minus_one;   // t - 1
   float sixteen_t;     // 4 a3, a3 = 4 t
+  float corner_c;      // 16 (1 - t)
 };
 
 struct Object {
@@ -80,8 +87,21 @@ __device__ float center_radius(float w, float h, const Consts& c) {
   return fminf(fminf(r1, r2), r3);
 }
 
+// ops/radius.corner_threshold_radius, operation for operation
+__device__ float corner_radius(float w, float h, const Consts& c) {
+  float sum_sq = add(mul(w, w), mul(h, h));
+  float prod = mul(w, h);
+  float lead = dvd(mul(2.0f, __fsqrt_rn(sum_sq)), prod);
+  float root = __fsqrt_rn(sub(dvd(mul(4.0f, sum_sq), mul(prod, prod)),
+                              dvd(c.corner_c, sum_sq)));
+  return dvd(sub(lead, root), dvd(8.0f, sum_sq));
+}
+
+// kCorner: the corner radius and offsets (offs (B, K, 2)); else the center
+template <bool kCorner>
 __global__ void render_heatmap_kernel(const float* __restrict__ locs,
                                       const unsigned char* __restrict__ valid,
+                                      const float* __restrict__ offs,
                                       float* __restrict__ heat, int K, int S,
                                       Consts c) {
   extern __shared__ Object objects[];
@@ -89,12 +109,19 @@ __global__ void render_heatmap_kernel(const float* __restrict__ locs,
   const float* rec = locs + (long long)b * K * 8;
   for (int k = threadIdx.x; k < K; k += blockDim.x) {
     const float* r = rec + k * 8;
-    float cx = truncf(r[0]);
-    float cy = truncf(r[1]);
+    float px = r[0], py = r[1];
+    if (kCorner) {
+      const float* o = offs + ((long long)b * K + k) * 2;
+      px = add(px, o[0]);
+      py = add(py, o[1]);
+    }
+    float cx = truncf(px);
+    float cy = truncf(py);
     bool ok = valid[(long long)b * K + k] != 0 && cx >= 0.0f &&
               cx < (float)S && cy >= 0.0f && cy < (float)S;
     float maj = __fsqrt_rn(add(mul(r[4], r[4]), mul(r[5], r[5])));
-    float radius = center_radius(mul(2.0f, maj), mul(2.0f, r[6]), c);
+    float w = mul(2.0f, maj), h = mul(2.0f, r[6]);
+    float radius = kCorner ? corner_radius(w, h, c) : center_radius(w, h, c);
     radius = (ok && radius > 0.0f) ? radius : 1.0f;
     float sigma = dvd(radius, 3.0f);
     Object o;
@@ -129,9 +156,11 @@ extern "C" {
 
 // locs (B, K, 8) float32, valid (B, K) uint8, heat (B, S, S) float32, all
 // contiguous on the device; threshold is the IoU of the radius solver.
+// offsets: null for the center heatmap, else (B, K, 2) float32 corner
+// offsets, which select the corner radius.
 int render_heatmap_f32(const float* locs, const unsigned char* valid,
-                       float* heat, int B, int K, int S, double threshold,
-                       void* stream) {
+                       const float* offsets, float* heat, int B, int K,
+                       int S, double threshold, void* stream) {
   const int threads = 256;
   long long tiles = ((long long)S * S + threads - 1) / threads;
   if (B <= 0 || S <= 0 || K < 0 || tiles > 65535)
@@ -142,11 +171,16 @@ int render_heatmap_f32(const float* locs, const unsigned char* valid,
   c.minus_two_t = (float)(-2.0 * threshold);
   c.t_minus_one = (float)(threshold - 1.0);
   c.sixteen_t = (float)(4.0 * (4.0 * threshold));
+  c.corner_c = (float)(16.0 * (1.0 - threshold));
   dim3 grid((unsigned)B, (unsigned)tiles);
   size_t smem = (size_t)K * sizeof(Object);
-  render_heatmap_kernel<<<grid, threads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      locs, valid, heat, K, S, c);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (offsets != nullptr)
+    render_heatmap_kernel<true><<<grid, threads, smem, s>>>(
+        locs, valid, offsets, heat, K, S, c);
+  else
+    render_heatmap_kernel<false><<<grid, threads, smem, s>>>(
+        locs, valid, offsets, heat, K, S, c);
   return (int)cudaGetLastError();
 }
 

@@ -7,10 +7,11 @@ datasets/scds/scdx16p100.py), on one card:
   ``argument_ratio``, is shuffled, and is cut to ``partition`` (144-161);
 - the validation split is read from, or written to, the
   ``{dataset}.split.json`` profile with the reference's schema (163-186);
-- the validation set is rendered once, in chunks of
-  ``VALIDATION_CHUNK`` clips, through the port's batch transform on the
-  dataset's device, so through the K1 kernel on a card, and kept on the
-  host (199-286, 381-414);
+- the validation set is rendered once per target family (center, or
+  corner with the tl/br heatmaps), in chunks of ``VALIDATION_CHUNK``
+  clips, through the port's batch transform on the dataset's device, so
+  through the K1 kernel on a card, and kept on the host (199-286,
+  381-414);
 - each epoch's shuffle is keyed by (seed, epoch), so a resumed run sees
   the epochs it would have seen (the JAX package's keys, so its
   single-device order and this one agree).
@@ -33,7 +34,7 @@ from scd_resnet_tpu_torch.data.archive import read_archive
 from scd_resnet_tpu_torch.data.pipeline import augment_and_render_batch
 
 _NAME_RE = re.compile(r"^(?P<img>.+?)\.(?P<rep>\d+)\.(?P<clip>\d+)\.npy$")
-VALIDATION_CHUNK = 256  # clips per pre-render call (one K1 launch each)
+VALIDATION_CHUNK = 256  # clips per pre-render call (one K1 launch per heatmap)
 
 
 def as_storage(samples: np.ndarray, storage_dtype: str) -> np.ndarray:
@@ -119,21 +120,24 @@ class SCDDataset:
             with open(split_profile_path, "w") as f:
                 json.dump(self.data_profile, f)
         self._seed = seed
-        self._validation: Optional[Dict] = None
+        self._validation: Dict[bool, Dict] = {}
         Logger.log("Dataset ready: {} training / {} validation clips".format(
             len(self.order), len(self.data_profile["validation"])))
 
     # ---- validation ------------------------------------------------------
 
-    def _render_validation(self) -> Optional[Dict]:
-        """Render the validation set once, without augmentation.
+    def _render_validation(self, corner_targets: bool = False
+                           ) -> Optional[Dict]:
+        """Render the validation set once per target family, without
+        augmentation (the JAX dataset's cache, keyed the same way).
 
-        Layout: ``xs = [(N, 1, S, S)]``; ``ys = [heat, tag mask, regr,
-        loc records (N, K, 8), counts, indices]``. ys[3] carries the
-        float loc records for the [It] metrics, as the reference's
-        getValidationSet does (scdx16p100.py:404-414)."""
-        if self._validation is not None:
-            return self._validation
+        Layouts: ``xs = [(N, 1, S, S)]``; the center family's ``ys =
+        [heat, tag mask, regr, loc records (N, K, 8), counts, indices]``,
+        where ys[3] carries the float loc records for the [It] metrics, as
+        the reference's getValidationSet does (scdx16p100.py:404-414); the
+        corner families' ``ys = [heat, tag mask, regr, indices, tl, br]``."""
+        if corner_targets in self._validation:
+            return self._validation[corner_targets]
         val_ids = np.asarray(self.data_profile["validation"], np.int64)
         if len(val_ids) == 0:
             return None
@@ -144,23 +148,24 @@ class SCDDataset:
                 torch.from_numpy(self.samples[ids]).to(self.device),
                 torch.from_numpy(self.locs[ids]).to(self.device),
                 torch.from_numpy(self.counts[ids]).to(self.device),
-                self.heat_size, augment=False)
+                self.heat_size, augment=False, corner_targets=corner_targets)
             xs_parts.append(xs.cpu())
             ys_parts.append([y.cpu() for y in ys])
-        heat, mask, regr, indices = (torch.cat(parts)
-                                     for parts in zip(*ys_parts))
-        self._validation = {
-            "xs": [torch.cat(xs_parts)],
-            "ys": [heat, mask, regr, torch.from_numpy(self.locs[val_ids]),
-                   torch.from_numpy(self.counts[val_ids]), indices],
-        }
-        return self._validation
+        ys = [torch.cat(parts) for parts in zip(*ys_parts)]
+        if not corner_targets:
+            heat, mask, regr, indices = ys
+            ys = [heat, mask, regr, torch.from_numpy(self.locs[val_ids]),
+                  torch.from_numpy(self.counts[val_ids]), indices]
+        self._validation[corner_targets] = {"xs": [torch.cat(xs_parts)],
+                                            "ys": ys}
+        return self._validation[corner_targets]
 
-    def get_validation_set(self, validation_batch_size: int) -> List[Dict]:
-        """The pre-rendered validation set in batches of
-        ``validation_batch_size``; a remainder batch is dropped, and a
+    def get_validation_set(self, validation_batch_size: int,
+                           corner_targets: bool = False) -> List[Dict]:
+        """The pre-rendered validation set of a target family in batches
+        of ``validation_batch_size``; a remainder batch is dropped, and a
         set no larger than one batch is one batch (scdx16p100.py:381-414)."""
-        validation = self._render_validation()
+        validation = self._render_validation(corner_targets)
         if validation is None:
             return []
         total = int(validation["xs"][0].shape[0])

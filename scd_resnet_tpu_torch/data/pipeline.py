@@ -7,7 +7,10 @@ Counterpart of ``scd_resnet_tpu/data/pipeline.augment_and_render_batch``
 - per-clip standardisation, variance jitter, Gaussian pixel noise;
 - the tag mask (real and in-bounds objects) and flat heatmap indices;
 - the Gaussian heatmap at IoU 0.5, rendered by the K1 kernel
-  (``ops/gaussian.render_heatmap``) on a CUDA tensor.
+  (``ops/gaussian.render_heatmap``) on a CUDA tensor;
+- with ``corner_targets=True`` (the corner families), the top-left and
+  bottom-right corner heatmaps as well: corners at the center -/+ (|maj|,
+  minL), rendered by K1's corner variant with the corner radius.
 
 The random draws are an argument (:class:`Draws`), not drawn inside: the
 trainer makes them from a per-step ``torch.Generator`` (:func:`draw`),
@@ -27,6 +30,7 @@ from scd_resnet_tpu_torch.ops.augment import (
     normalize,
 )
 from scd_resnet_tpu_torch.ops.gaussian import render_heatmap
+from scd_resnet_tpu_torch.ops.radius import corner_threshold_radius, sqrt_rn
 
 THRESHOLD_IOU = 0.5  # scdx16p100.py:52
 
@@ -68,6 +72,16 @@ def identity_draws(batch: int, size: int, device: torch.device) -> Draws:
                  torch.zeros((batch, size, size), device=device))
 
 
+def corner_offsets(locs: torch.Tensor):
+    """The (B, K, 2) offsets from each center to its top-left and
+    bottom-right corner, -/+ (|maj|, minL), as the JAX corner branch
+    takes them (``scd_resnet_tpu/data/pipeline.py:147-154``)."""
+    maj_l = sqrt_rn(locs[:, :, 4] * locs[:, :, 4]
+                    + locs[:, :, 5] * locs[:, :, 5])
+    half = torch.stack([maj_l, locs[:, :, 6]], dim=-1)
+    return -half, half
+
+
 def augment_and_render_batch(samples: torch.Tensor, locs: torch.Tensor,
                              counts: torch.Tensor, heat_size: int,
                              augment: bool = True, draws: Draws = None,
@@ -86,14 +100,12 @@ def augment_and_render_batch(samples: torch.Tensor, locs: torch.Tensor,
 
     Returns ``xs`` (B, 1, S, S) and ``ys = [heat (B, 1, Hs, Hs), tag_mask
     (B, K) bool, regr (B, K, 6), indices (B, K) int64]``, the dataset
-    contract (scdx16p100.py:363-379) in NCHW.
+    contract (scdx16p100.py:363-379) in NCHW; with ``corner_targets``
+    ``ys`` adds ``tl`` and ``br`` (B, 1, Hs, Hs).
     """
     if corner_targets == "legacy":
         raise NotImplementedError(
             "legacy corner targets come with the cornerLegacy port (slice 7)")
-    if corner_targets:
-        raise NotImplementedError(
-            "corner targets come with corner training (slice 3)")
     b, k = locs.shape[:2]
     samples = samples.to(torch.float32)
     locs = locs.to(torch.float32)
@@ -121,6 +133,15 @@ def augment_and_render_batch(samples: torch.Tensor, locs: torch.Tensor,
     indices = torch.where(tag_mask, indices, torch.zeros_like(indices))
 
     regr = locs[:, :, 2:8]
-    heat = render_heatmap(locs.contiguous(), present, heat_size,
-                          THRESHOLD_IOU)
-    return samples[:, None], [heat[:, None], tag_mask, regr, indices]
+    locs = locs.contiguous()
+    heat = render_heatmap(locs, present, heat_size, THRESHOLD_IOU)
+    ys = [heat[:, None], tag_mask, regr, indices]
+    if corner_targets:
+        # the JAX branch masks the corners with ``present`` alone: a corner
+        # in (-1, 0) truncates to 0 and is stamped there
+        for offset in corner_offsets(locs):
+            corner = render_heatmap(locs, present, heat_size, THRESHOLD_IOU,
+                                    radius_fn=corner_threshold_radius,
+                                    position_offset=offset)
+            ys.append(corner[:, None])
+    return samples[:, None], ys

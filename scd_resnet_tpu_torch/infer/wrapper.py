@@ -54,8 +54,12 @@ def make_wrapper(model: nn.Module, family: str = "centerOffset") -> Callable:
     elif family == "corner":
         from scd_resnet_tpu_torch.models.corner_net import decode_corner_net
 
+        # a combined model's one 3-channel head is split before decoding
+        combined = getattr(model, "combined", False)
+
         def stack(out):
-            return torch.stack([r.float() for r in decode_corner_net(out)[:12]])
+            return torch.stack([r.float() for r in decode_corner_net(
+                out, combined=combined)[:12]])
 
     else:
         raise KeyError("unknown wrapper family '{}'; known: {}".format(

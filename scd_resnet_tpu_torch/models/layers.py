@@ -1,6 +1,8 @@
 """Building blocks: BatchNorm, Conv+BN+ReLU, the 7x7/s2 stem.
 
-Counterpart of ``scd_resnet_tpu/models/layers.py``, NCHW. In eval mode
+Counterpart of ``scd_resnet_tpu/models/layers.py``, NCHW. The stem's max
+pool takes its backward from the port's kernel (``ops/max_pool.py``).
+In eval mode
 BatchNorm normalises with its running statistics exactly as flax's
 ``use_running_average=True`` does (eps 1e-5). In training mode it keeps
 flax's running statistics, which differ from ``nn.BatchNorm2d``'s: see
@@ -14,6 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from scd_resnet_tpu_torch.ops.max_pool import max_pool_3x3_s2
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch convention; flax's 0.9
@@ -88,6 +92,14 @@ class ConvBlock(nn.Module):
         return torch.relu(x)
 
 
+class StemMaxPool(nn.Module):
+    """``nn.MaxPool2d(3, 2, 1)``'s forward; its backward is the port's
+    kernel (``ops/max_pool.MaxPool3x3S2``). No parameters, no state."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return max_pool_3x3_s2(x)
+
+
 def stem(features: int) -> nn.Sequential:
     """7x7/s2/p3 conv + BN + ReLU + 3x3/s2/p1 max pool
     (residuals.py:210-215); indices 0/1 carry the reference's
@@ -96,5 +108,5 @@ def stem(features: int) -> nn.Sequential:
         nn.Conv2d(1, features, 7, 2, 3, bias=False),
         batch_norm(features),
         nn.ReLU(),
-        nn.MaxPool2d(3, 2, 1),
+        StemMaxPool(),
     )

@@ -1,4 +1,5 @@
-"""Corner pooling: directional running max over NCHW feature maps.
+"""Corner pooling: directional running max over NCHW feature maps, and
+its gradient.
 
 Counterpart of ``scd_resnet_tpu/ops/corner_pool.py`` (NHWC there; NHWC
 axis 1/2 is NCHW dim 2/3 here). The four pools:
@@ -8,12 +9,17 @@ axis 1/2 is NCHW dim 2/3 here). The four pools:
 - ``left_pool``   — out[j] = max over cols j..W-1  (reverse, dim 3)
 - ``right_pool``  — out[j] = max over cols 0..j    (forward, dim 3)
 
-:func:`corner_pool` is the wrapper of the CUDA kernel
-``csrc/corner_pool.cu`` (the port of the TPU kernel
-``corner_pool_pallas``): for a CUDA tensor it launches the kernel or
-raises, for a CPU tensor it computes :func:`corner_pool_plain`. Forward
-only — serving runs under ``torch.inference_mode()``; the backward
-kernel comes with the training slice.
+Two CUDA kernels in ``csrc/corner_pool.cu``: :func:`corner_pool` wraps
+the forward (the port of the TPU kernel ``corner_pool_pallas``) and
+:func:`corner_pool_bwd` the backward (the port of
+``corner_pool_bwd_pallas``). For a CUDA tensor each launches its kernel
+or raises; for a CPU tensor each computes its plain version.
+:class:`CornerPool` ties the two together for autograd, so the pools'
+gradient goes through the backward kernel on the card and through
+:func:`corner_pool_bwd_plain` on the CPU. ``torch.cummax``'s own
+autograd is on no path: it sends a tied gradient to the *last* tied
+element, where the JAX package and the reference's C++ pools send it to
+the first.
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ from scd_resnet_tpu_torch.core import cuda_build
 KERNEL_SOURCE = "corner_pool.cu"
 # one count per __global__ kernel: the H walk and the W warp scan
 KERNEL_NAMES = {2: "corner_pool_h", 3: "corner_pool_w"}
-for _name in KERNEL_NAMES.values():
+BWD_KERNEL_NAMES = {2: "corner_pool_bwd_h", 3: "corner_pool_bwd_w"}
+for _name in (*KERNEL_NAMES.values(), *BWD_KERNEL_NAMES.values()):
     cuda_build.LAUNCHES.setdefault(_name, 0)
 
 
@@ -40,54 +47,144 @@ def corner_pool_plain(x: torch.Tensor, dim: int, reverse: bool
     return torch.cummax(x, dim).values
 
 
+def corner_pool_bwd_plain(x: torch.Tensor, g: torch.Tensor, dim: int,
+                          reverse: bool) -> torch.Tensor:
+    """Gradient of the running max along ``dim`` with respect to ``x``
+    for the cotangent ``g``, in plain PyTorch: the scan-free VJP of
+    ``scd_resnet_tpu/ops/corner_pool._pool_bwd``.
+
+    The cotangent of out[i] belongs to the running argmax at i, a tie
+    going to the element scanned first. Argmax segments start where x
+    strictly exceeds every earlier element ("new max"), so with R the
+    suffix sum of g, grad = is_new * (R - R at the next new max)."""
+    if reverse:
+        x, g = x.flip(dim), g.flip(dim)
+    n = x.shape[dim]
+    running = torch.cummax(x, dim).values
+    first = torch.full_like(running.narrow(dim, 0, 1), float("-inf"))
+    is_new = x > torch.cat([first, running.narrow(dim, 0, n - 1)], dim)
+    suffix = torch.cumsum(g.flip(dim), dim).flip(dim)
+    # the index of the first new max strictly after each position (n if
+    # none), as a reverse running min over the new-max positions
+    shape = [1] * x.dim()
+    shape[dim] = n
+    positions = torch.arange(n, device=x.device).view(shape).expand_as(x)
+    new_at = torch.where(is_new, positions, torch.full_like(positions, n))
+    upto = torch.cummin(new_at.flip(dim), dim).values.flip(dim)
+    after = torch.cat([upto.narrow(dim, 1, n - 1),
+                       torch.full_like(upto.narrow(dim, 0, 1), n)], dim)
+    padded = torch.cat([suffix, torch.zeros_like(suffix.narrow(dim, 0, 1))],
+                       dim)
+    grad = torch.where(is_new, suffix - padded.gather(dim, after),
+                       torch.zeros_like(suffix))
+    return grad.flip(dim) if reverse else grad
+
+
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load(KERNEL_SOURCE)
-    fn = lib.corner_pool_f32
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    for fn, pointers in ((lib.corner_pool_f32, 2),
+                         (lib.corner_pool_bwd_f32, 3)):
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p] * pointers + [
+                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     return lib
+
+
+def _check(what: str, x: torch.Tensor, dim: int) -> None:
+    if x.dim() != 4:
+        raise ValueError("{} takes (B, C, H, W), got shape {}".format(
+            what, tuple(x.shape)))
+    if dim not in KERNEL_NAMES:
+        raise ValueError("{} dim must be 2 or 3, got {}".format(what, dim))
+    if x.dtype != torch.float32:
+        raise TypeError("{} takes float32, got {}".format(what, x.dtype))
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError("{} runs on cuda or cpu, not {}".format(
+            what, x.device))
+
+
+def _launch(entry: str, tensors, dim: int, reverse: bool) -> None:
+    """Launch ``entry`` on the current stream of the first tensor's card;
+    ``tensors`` are the kernel's pointer arguments, inputs first."""
+    b, c, h, w = tensors[0].shape
+    lib = _library()
+    device = tensors[0].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = getattr(lib, entry)(*(t.data_ptr() for t in tensors),
+                                     b, c, h, w, dim, int(reverse), stream)
+    cuda_build.check(lib, status, entry)
 
 
 def corner_pool(x: torch.Tensor, dim: int, reverse: bool) -> torch.Tensor:
     """Directional running max of a (B, C, H, W) float32 tensor along
     ``dim`` (2 = H, 3 = W), reversed for the top/left pools."""
-    if x.dim() != 4:
-        raise ValueError("corner_pool takes (B, C, H, W), got shape {}"
-                         .format(tuple(x.shape)))
-    if dim not in KERNEL_NAMES:
-        raise ValueError("corner_pool dim must be 2 or 3, got {}".format(dim))
-    if x.dtype != torch.float32:
-        raise TypeError("corner_pool takes float32, got {}".format(x.dtype))
+    _check("corner_pool", x, dim)
     if x.device.type == "cpu":
         return corner_pool_plain(x, dim, reverse)
-    if x.device.type != "cuda":
-        raise ValueError("corner_pool runs on cuda or cpu, not {}"
-                         .format(x.device))
     if not x.is_contiguous():
         raise ValueError("corner_pool needs an NCHW-contiguous tensor")
-    b, c, h, w = x.shape
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        status = lib.corner_pool_f32(x.data_ptr(), y.data_ptr(), b, c, h, w,
-                                     dim, int(reverse), stream)
-    cuda_build.check(lib, status, "corner_pool_f32")
+    _launch("corner_pool_f32", (x, y), dim, reverse)
     cuda_build.count_launch(KERNEL_NAMES[dim])
     return y
 
 
+def corner_pool_bwd(x: torch.Tensor, g: torch.Tensor, dim: int,
+                    reverse: bool) -> torch.Tensor:
+    """Gradient of :func:`corner_pool` with respect to ``x`` for the
+    cotangent ``g`` (same shape), first-occurrence tie routing."""
+    _check("corner_pool_bwd", x, dim)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError("corner_pool_bwd: g must match x ({}, {}, {}), got "
+                         "({}, {}, {})".format(tuple(x.shape), x.dtype,
+                                               x.device, tuple(g.shape),
+                                               g.dtype, g.device))
+    if x.device.type == "cpu":
+        return corner_pool_bwd_plain(x, g, dim, reverse)
+    if not (x.is_contiguous() and g.is_contiguous()):
+        raise ValueError("corner_pool_bwd needs NCHW-contiguous tensors")
+    dx = torch.empty_like(x)
+    if x.numel() == 0:
+        return dx
+    _launch("corner_pool_bwd_f32", (x, g, dx), dim, reverse)
+    cuda_build.count_launch(BWD_KERNEL_NAMES[dim])
+    return dx
+
+
+class CornerPool(torch.autograd.Function):
+    """The running max with its first-occurrence gradient: forward
+    :func:`corner_pool`, backward :func:`corner_pool_bwd` (the kernels on
+    the card, their plain versions on the CPU). float32 in and out; it
+    saves only its input."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, dim: int, reverse: bool
+                ) -> torch.Tensor:
+        ctx.save_for_backward(x)
+        ctx.dim, ctx.reverse = dim, reverse
+        return corner_pool(x, dim, reverse)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (x,) = ctx.saved_tensors
+        return corner_pool_bwd(x, g.contiguous(), ctx.dim, ctx.reverse), \
+            None, None
+
+
 def _pool(x: torch.Tensor, dim: int, reverse: bool) -> torch.Tensor:
     """Public pool entry: always computes in float32 (exact for bf16 and
-    fp16 inputs, since a running max only returns input values)."""
+    fp16 inputs, since a running max only returns input values); the
+    casts stay outside :class:`CornerPool`, as the JAX ``_pool`` keeps
+    them outside its custom VJP."""
     if x.dtype != torch.float32:
-        return corner_pool(x.float().contiguous(), dim, reverse).to(x.dtype)
-    return corner_pool(x.contiguous(), dim, reverse)
+        return CornerPool.apply(x.float().contiguous(), dim,
+                                reverse).to(x.dtype)
+    return CornerPool.apply(x.contiguous(), dim, reverse)
 
 
 def top_pool(x: torch.Tensor) -> torch.Tensor:

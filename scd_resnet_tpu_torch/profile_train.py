@@ -1,26 +1,32 @@
 """Where a training step's time goes on the card.
 
-    python -m scd_resnet_tpu_torch.profile_train [--archive PATH] [--steps 20]
+    python -m scd_resnet_tpu_torch.profile_train [--config configs/exp74.json]
+        [--archive PATH] [--steps 20]
 
-Trains ``centerOffsetRes10`` under ``configs/exp74.json`` (512x512 clips,
-batch 32, bf16 autocast, Adam) on the seeded synthetic stand-in for its
-archive (``EXP74_ARCHIVE``, 256 clips; written to ``build/profile_train/``
+Trains the configuration's model under its settings (``configs/exp74.json``,
+``centerOffsetRes10``, by default; ``configs/cpool_best.json`` trains
+``cornerCPoolRes10``; both 512x512 clips, batch 32, bf16 autocast, Adam)
+on the seeded synthetic stand-in for the ``scdx16p100`` archive
+(``SYNTHETIC_ARCHIVE``, 256 clips; written to ``build/profile_train/``
 unless ``--archive`` names a copy, such as the one ``chip_smoke.py``
-writes), with the training rows resident on the card. After 10 warm-up steps
-(cuDNN autotunes its algorithms in the first ones) it prints one JSON
-line:
+writes), with the training rows resident on the card. After 10 warm-up
+steps (cuDNN autotunes its algorithms in the first ones) it prints one
+JSON line:
 
 - ``step_ms`` and ``clips_per_s``: host wall time of ``--steps`` steps
   ending in a synchronise, per step;
 - ``phases_ms``: one step cut into phases, each timed alone with CUDA
   events over ``--steps`` calls: gather (the batch's rows by index),
   augment+render (the batch transform, heatmaps by the render kernel),
-  render (the kernel alone), forward (training mode, autocast), and
+  render (the kernel alone: the center heatmap, and for a corner model
+  one corner heatmap), forward (training mode, autocast), and
   forward+loss+backward;
 - ``kernels``: device time per step by kernel name (``torch.profiler``
   over ``--steps`` steps), the largest first, ``device_busy_share``
-  (summed kernel time over the profiled wall time) and the render
-  kernel's own line;
+  (summed kernel time over the profiled wall time), the port's own
+  kernels' lines (``port_kernels``) and the lines of PyTorch's max-pool
+  backward or ``cummax`` (``library_pool_kernels``, which the port's
+  kernels replace: empty when the step runs through them);
 - ``peak_memory_gb``: ``torch.cuda.max_memory_allocated`` over the run.
 
 Needs a CUDA card.
@@ -39,37 +45,49 @@ import torch
 
 from scd_resnet_tpu_torch.core.config import Configuration
 from scd_resnet_tpu_torch.core.device import resolve_device, training_backends
-from scd_resnet_tpu_torch.data.pipeline import augment_and_render_batch
+from scd_resnet_tpu_torch.data.pipeline import (
+    augment_and_render_batch,
+    corner_offsets,
+)
 from scd_resnet_tpu_torch.data.synthetic import make_archive
 from scd_resnet_tpu_torch.models.center_net_offset import as_stack_list
 from scd_resnet_tpu_torch.ops.gaussian import render_heatmap
+from scd_resnet_tpu_torch.ops.radius import corner_threshold_radius
 from scd_resnet_tpu_torch.profile_serve import device_ms
 from scd_resnet_tpu_torch.train.factory import NetworkFactory
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXP74 = os.path.join(REPO, "configs", "exp74.json")
-# the synthetic stand-in for exp74's archive (``make_archive``'s
-# arguments): 2 x 128 clips of 512^2, half of them validation
-EXP74_ARCHIVE = {"num_images": 2, "reps": 1, "clips_per_image": 128,
-                 "size": 512, "seed": 74}
+CPOOL_BEST = os.path.join(REPO, "configs", "cpool_best.json")
+# the synthetic stand-in for the scdx16p100 archive of both configurations
+# (``make_archive``'s arguments): 2 x 128 clips of 512^2, half of them
+# validation
+SYNTHETIC_ARCHIVE = {"num_images": 2, "reps": 1, "clips_per_image": 128,
+                     "size": 512, "seed": 74}
 RENDER_KERNEL = "render_heatmap_kernel"
+# the port's __global__ kernels, and PyTorch's that they replace
+PORT_KERNELS = ("render_heatmap_kernel", "pool_h_kernel", "pool_w_kernel",
+                "pool_bwd_h_kernel", "pool_bwd_w_kernel",
+                "max_pool_bwd_kernel")
+LIBRARY_POOL_KERNELS = ("max_pool_backward", "cummax")
 WARMUP_STEPS = 10
 
 
-def exp74_settings(data_dir: str, work: str, **overrides) -> Dict[str, Any]:
-    """``configs/exp74.json`` with its archive in ``data_dir``, its outputs
-    under ``work`` and ``overrides`` on top."""
-    with open(EXP74) as f:
-        settings = json.load(f)
-    settings.update(dirDataset=data_dir + "/", dirTemp=work + "/temp/",
-                    dirResult=work + "/results/", **overrides)
-    return settings
+def settings(config: str, data_dir: str, work: str,
+             **overrides) -> Dict[str, Any]:
+    """The configuration file ``config`` with its archive in ``data_dir``,
+    its outputs under ``work`` and ``overrides`` on top."""
+    with open(config) as f:
+        values = json.load(f)
+    values.update(dirDataset=data_dir + "/", dirTemp=work + "/temp/",
+                  dirResult=work + "/results/", **overrides)
+    return values
 
 
-def build_factory(archive: str, work: str) -> NetworkFactory:
+def build_factory(config: str, archive: str, work: str) -> NetworkFactory:
     cfg = Configuration()
-    cfg.update_config(exp74_settings(os.path.dirname(archive), work,
-                                     residency="device"))
+    cfg.update_config(settings(config, os.path.dirname(archive), work,
+                               residency="device"))
     if os.path.basename(cfg.dirDatafile) != os.path.basename(archive):
         raise ValueError("the archive must be named {}".format(
             os.path.basename(cfg.dirDatafile)))
@@ -101,11 +119,14 @@ def profile(factory: NetworkFactory, steps: int) -> Dict:
                 factory._ds_locs.index_select(0, idx),
                 factory._ds_counts.index_select(0, idx))
     draws = factory.draws_for_step(0, batch)
+    corner_targets = factory.profile.corner_targets
     xs, ys = augment_and_render_batch(*gathered, factory.heat_size,
-                                      draws=draws)
+                                      draws=draws,
+                                      corner_targets=corner_targets)
     locs = gathered[1].float().contiguous()
     present = (torch.arange(locs.shape[1], device="cuda")[None, :]
                < gathered[2][:, None])
+    _, offset = corner_offsets(locs)
     model, autocast = factory.model, factory.autocast
     model.train()
 
@@ -123,13 +144,19 @@ def profile(factory: NetworkFactory, steps: int) -> Dict:
             factory._ds_samples, factory._ds_locs, factory._ds_counts)],
             steps, warmup=2),
         "augment_render": device_ms(lambda: augment_and_render_batch(
-            *gathered, factory.heat_size, draws=draws), steps, warmup=2),
+            *gathered, factory.heat_size, draws=draws,
+            corner_targets=corner_targets), steps, warmup=2),
         "render_kernel": device_ms(lambda: render_heatmap(
             locs, present, factory.heat_size), steps, warmup=2),
         "forward": device_ms(forward, steps, warmup=2),
         "forward_loss_backward": device_ms(forward_backward, steps,
                                            warmup=2),
     }
+    if corner_targets:
+        phases["render_corner_kernel"] = device_ms(lambda: render_heatmap(
+            locs, present, factory.heat_size,
+            radius_fn=corner_threshold_radius, position_offset=offset),
+            steps, warmup=2)
 
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
@@ -149,6 +176,9 @@ def profile(factory: NetworkFactory, steps: int) -> Dict:
     kernels.sort(key=lambda k: -k["ms_per_step"])
     busy_ms = sum(k["ms_per_step"] for k in kernels) * steps
     render = [k for k in kernels if RENDER_KERNEL in k["name"]]
+    port = [k for k in kernels if any(n in k["name"] for n in PORT_KERNELS)]
+    library = [k for k in kernels
+               if any(n in k["name"] for n in LIBRARY_POOL_KERNELS)]
     return {"arch": factory.config.modelName, "batch": batch,
             "clip": factory.sample_size,
             "precision": factory.config.config["precision"],
@@ -156,12 +186,15 @@ def profile(factory: NetworkFactory, steps: int) -> Dict:
             "phases_ms": phases,
             "device_busy_share": busy_ms / window_ms if window_ms else None,
             "render_kernel": render[0] if render else None,
-            "kernels": kernels[:20],
+            "port_kernels": port, "library_pool_kernels": library,
+            "kernels": kernels[:30],
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1024 ** 3}
 
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--config", default=EXP74,
+                        help="the configuration to train (default exp74)")
     parser.add_argument("--archive", default=os.path.join(
         REPO, "build", "profile_train", "scdx16p100.d"))
     parser.add_argument("--steps", type=int, default=20)
@@ -172,10 +205,13 @@ def main(argv=None) -> None:
                           capture_output=True, text=True).stdout.strip()
     if not os.path.exists(args.archive):
         os.makedirs(os.path.dirname(args.archive), exist_ok=True)
-        make_archive(args.archive, **EXP74_ARCHIVE)
+        make_archive(args.archive, **SYNTHETIC_ARCHIVE)
     work = os.path.join(REPO, "build", "profile_train")
-    with training_backends("bfloat16"):
-        result = profile(build_factory(args.archive, work), args.steps)
+    with open(args.config) as f:
+        precision = json.load(f).get("precision", "float32")
+    with training_backends(precision):
+        result = profile(build_factory(args.config, args.archive, work),
+                         args.steps)
     result["card"] = card
     print(json.dumps(result), flush=True)
 

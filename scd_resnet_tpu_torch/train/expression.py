@@ -5,9 +5,12 @@ centerOffset family (reference trainer/model/centerOffsetRes10.py:18-106):
 the masked selections of every validation batch are joined, the means
 taken (orthogonality NaN-filtered), AP computed at 0.3/0.5/0.7/0.9, and
 the ``[mIoU] ... [avgS]`` line formatted exactly as the reference appends
-it to ``evals.{trainName}.txt`` (``factory.parse_metric_line`` reads it).
+it to ``evals.{trainName}.txt`` (``factory.parse_metric_line`` reads it);
+and for the corner families: peak AP50/AP75 per head and box AP50, the
+``[heatPeakAP50] ... [boxAP50]`` line.
 
-Inputs are ``center_net_evaluation``'s dicts, as tensors or numpy.
+Inputs are ``center_net_evaluation``'s or ``corner_net_evaluation``'s
+dicts, as tensors or numpy.
 """
 
 from __future__ import annotations
@@ -98,3 +101,45 @@ def expression_center_net(batches: List[Dict]) -> str:
             format(e["avgScore"], "-6.4f"),
         )
     )
+
+
+def aggregate_corner_net(batches: List[Dict]) -> Dict[str, float]:
+    """Peak AP50/AP75 per head for the corner families: a decoded peak
+    is a true positive when the ground-truth Gaussian at its pixel is at
+    least the threshold; and box AP50 over the center-gated tl/br pairs
+    (``models/corner_net.pair_corner_boxes``)."""
+    result: Dict[str, float] = {}
+    obj_num = sum(float(_np(batch["objs"]).sum()) for batch in batches)
+    for head in ("heat", "tl", "br"):
+        gts = [_masked(batch[head][0], batch[head][2]) for batch in batches]
+        scores = [_masked(batch[head][1], batch[head][2])
+                  for batch in batches]
+        gts = np.concatenate(gts) if gts else np.zeros(0)
+        scores = np.concatenate(scores) if scores else np.zeros(0)
+        denom = max(obj_num, float(len(gts)))
+        for t in (50, 75):
+            plots = average_precision_plots(gts, scores, denom, t / 100.0)
+            result[f"{head}AP{t}"] = average_precision_all(plots)
+    if any("box" not in batch for batch in batches):
+        result["boxAP50"] = 0.0
+        return result
+    ious = [_masked(batch["box"][0], batch["box"][2]) for batch in batches]
+    scores = [_masked(batch["box"][1], batch["box"][2]) for batch in batches]
+    ious = np.concatenate(ious) if ious else np.zeros(0)
+    scores = np.concatenate(scores) if scores else np.zeros(0)
+    denom = max(obj_num, float(len(ious)))
+    result["boxAP50"] = average_precision_all(
+        average_precision_plots(ious, scores, denom, 0.5))
+    return result
+
+
+def expression_corner_net(batches: List[Dict]) -> str:
+    """The corner families' report line, key for key the JAX package's."""
+    e = aggregate_corner_net(batches)
+    return (
+        "[heatPeakAP50] {}    [heatPeakAP75] {}    [tlPeakAP50] {}    "
+        "[tlPeakAP75] {}    [brPeakAP50] {}    [brPeakAP75] {}    "
+        "[boxAP50] {}".format(
+            *(format(e[k] * 100, "-5.2f")
+              for k in ("heatAP50", "heatAP75", "tlAP50", "tlAP75",
+                        "brAP50", "brAP75", "boxAP50"))))

@@ -1,13 +1,15 @@
 """The trainer: one train step on one card, and the schedule loop.
 
 Counterpart of ``scd_resnet_tpu/train/factory.py`` (reference
-models/networkFactory.py) for the centerOffset family on one card:
+models/networkFactory.py) for the centerOffset and corner families on one
+card:
 
 - ``make_lr_schedule`` / ``make_optimizer``: Adam, or SGD with momentum
   0.9 and weight decay 1e-4, on optax's piecewise-constant schedule. The
   update with 0-based count n uses ``schedule(n)``, so a milestone at
   11,000 already decays the update of count 11,000, as optax does;
-- the step: augment + render (K1 on the card) -> forward, under
+- the step: augment + render (K1 on the card; the corner families'
+  tl/br heatmaps too) -> forward, under
   ``torch.autocast(bfloat16)`` when ``precision`` is ``bfloat16`` ->
   loss in float32 -> backward -> update. Parameters, BatchNorm
   statistics and the loss stay float32;
@@ -132,7 +134,7 @@ class NetworkFactory:
         self.profile = get_model_profile(cfg.modelName)
         if self.profile.loss is None:
             raise NotImplementedError(
-                "training '{}' comes with corner training (slice 3)".format(
+                "profile '{}' has no training loss in the port".format(
                     cfg.modelName))
         Logger.info("Loaded model profile: {}".format(cfg.modelName))
         precision = cfg.config.get("precision", "float32")
@@ -203,8 +205,9 @@ class NetworkFactory:
             draws = self.draws_for_step(self._aug_step, samples.shape[0])
         self._aug_step += 1
         self.model.train()
-        xs, ys = augment_and_render_batch(samples, locs, counts,
-                                          self.heat_size, draws=draws)
+        xs, ys = augment_and_render_batch(
+            samples, locs, counts, self.heat_size, draws=draws,
+            corner_targets=self.profile.corner_targets)
         lr = self.schedule(self.updates)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
@@ -334,7 +337,8 @@ class NetworkFactory:
             self.expression([self.validate_train_batch()])
         batches = [self.validate(item["xs"][0], item["ys"]) for item in
                    self.dataset.get_validation_set(
-                       self.config.validationBatchSize)]
+                       self.config.validationBatchSize,
+                       corner_targets=self.profile.corner_targets)]
         it_line = "[It] {}:     ".format(format(it, "7d")) + \
             self.expression(batches)
         return tr_line, it_line

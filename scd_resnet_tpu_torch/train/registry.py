@@ -7,13 +7,15 @@ registry's (reference trainer/model/*.py):
 - ``centerOffsetRes{10,18,34,50}``: full width, terminal hidden 128;
 - ``centerOffsetRes{10,18,34,50,101}h``: half width, hidden 64;
 - ``centerOffsetRes10q``: quarter width, hidden 64;
-- ``cornerCPoolRes{10,18}``: full width, corner-pooled tl/br heads.
+- ``cornerRes{10,18}``, ``cornerCPoolRes{10,18}``,
+  ``cornerCombinedRes{10,18}``: full width, family ``corner``, trained on
+  corner targets; the combined model's loss and decode split its one
+  3-channel head.
 
 ``family`` names the deployment contract (``infer/wrapper.CONTRACTS``).
-The training pieces (``loss``, ``decode``, ``evaluation``,
-``expression``) are set for the ``centerOffset*`` profiles, with the JAX
-registry's loss weights (0.1, 0.1; reference centerOffsetRes10.py:9-17);
-the corner profiles train from slice 3 on.
+Every profile carries its training pieces (``loss``, ``decode``,
+``evaluation``, ``expression``); the centerOffset ones the JAX
+registry's loss weights (0.1, 0.1; reference centerOffsetRes10.py:9-17).
 
 Dataset profiles: the 25 ``scdx{A}p{P}`` variants (A in {1,4,8,12,16}
 rotation-augment intake, P in {5,10,25,50,100} percent partition), which
@@ -23,13 +25,17 @@ differ only in three constants (reference scdx1p5.py:57-60).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, Optional
 
 from torch import nn
 
 from scd_resnet_tpu_torch.models import center_net_offset as cno
 from scd_resnet_tpu_torch.models import corner_net as corner
-from scd_resnet_tpu_torch.train.expression import expression_center_net
+from scd_resnet_tpu_torch.train.expression import (
+    expression_center_net,
+    expression_corner_net,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,13 +113,29 @@ for _depth in (10, 18, 34, 50, 101):
     _center_offset(f"centerOffsetRes{_depth}h", _depth, HALF, 64)
 _center_offset("centerOffsetRes10q", 10, QUARTER, 64)
 
-for _depth in (10, 18):
+
+
+def _corner(name: str, model_cls, num_layers: int,
+            combined: bool = False) -> None:
     register_model(ModelProfile(
-        name=f"cornerCPoolRes{_depth}",
-        model_cls=corner.CornerNetCPoolResidual,
-        model_params={"num_layers": _depth, "dims": FULL},
+        name=name,
+        model_cls=model_cls,
+        model_params={"num_layers": num_layers, "dims": FULL},
         family="corner",
+        loss=corner.CornerNetLoss(combined=combined),
+        decode=functools.partial(corner.decode_corner_net,
+                                 combined=combined),
+        evaluation=corner.corner_net_evaluation,
+        expression=expression_corner_net,
+        corner_targets=True,
     ))
+
+
+for _depth in (10, 18):
+    _corner(f"cornerRes{_depth}", corner.CornerNetResidual, _depth)
+    _corner(f"cornerCPoolRes{_depth}", corner.CornerNetCPoolResidual, _depth)
+    _corner(f"cornerCombinedRes{_depth}", corner.CornerNetCombined, _depth,
+            combined=True)
 
 for _a in (1, 4, 8, 12, 16):
     for _p in (5, 10, 25, 50, 100):

@@ -144,25 +144,32 @@ SERVE_BLOCKED = BLOCK + textwrap.dedent("""
     detections = InferenceService(wrapper).analyse_gray(slide)
 """) + LEAK_CHECK + 'print("served", len(detections))\n'
 
-# python -m scd_resnet_tpu_torch.train <tiny config> --device cpu
+# python -m scd_resnet_tpu_torch.train <tiny config> --device cpu, for a
+# centerOffset and a corner-pool model (quarter width, registered here)
 TRAIN_BLOCKED = BLOCK + textwrap.dedent("""
-    import json, os, runpy
+    import dataclasses, json, os, runpy
     from scd_resnet_tpu_torch.data.synthetic import make_archive
+    from scd_resnet_tpu_torch.train import registry
 
+    registry.MODEL_PROFILES["cornerCPoolRes10q"] = dataclasses.replace(
+        registry.get_model_profile("cornerCPoolRes10"),
+        name="cornerCPoolRes10q",
+        model_params={"num_layers": 10, "dims": registry.QUARTER})
     root = sys.argv[1]
     make_archive(os.path.join(root, "scdx16p100.d"), num_images=2, reps=1,
                  clips_per_image=8, size=64)
-    config = os.path.join(root, "tiny.json")
-    with open(config, "w") as f:
-        json.dump({"datasetName": "scdx16p100",
-                   "modelName": "centerOffsetRes10q", "trainName": "tiny",
-                   "batchSize": 4, "validationBatchSize": 4, "iterations": 2,
-                   "validation": 2, "snapshot": 2,
-                   "dirTemp": os.path.join(root, "temp/"),
-                   "dirResult": os.path.join(root, "results/"),
-                   "dirDataset": root + "/"}, f)
-    sys.argv = ["scd_resnet_tpu_torch.train", config, "--device", "cpu"]
-    runpy.run_module("scd_resnet_tpu_torch.train", run_name="__main__")
+    for arch in ("centerOffsetRes10q", "cornerCPoolRes10q"):
+        config = os.path.join(root, arch + ".json")
+        with open(config, "w") as f:
+            json.dump({"datasetName": "scdx16p100", "modelName": arch,
+                       "trainName": arch, "batchSize": 4,
+                       "validationBatchSize": 4, "iterations": 2,
+                       "validation": 2, "snapshot": 2,
+                       "dirTemp": os.path.join(root, "temp/"),
+                       "dirResult": os.path.join(root, "results/"),
+                       "dirDataset": root + "/"}, f)
+        sys.argv = ["scd_resnet_tpu_torch.train", config, "--device", "cpu"]
+        runpy.run_module("scd_resnet_tpu_torch.train", run_name="__main__")
 """) + LEAK_CHECK + 'print("trained")\n'
 
 
@@ -182,4 +189,5 @@ def test_port_imports_no_jax():
 def test_train_entry_point_imports_no_jax(tmp_path):
     out = _run_blocked(TRAIN_BLOCKED, str(tmp_path))
     assert out.rstrip().endswith("trained")
-    assert (tmp_path / "results" / "losses.tiny.2.txt").exists()
+    for arch in ("centerOffsetRes10q", "cornerCPoolRes10q"):
+        assert (tmp_path / "results" / "losses.{}.2.txt".format(arch)).exists()

@@ -227,14 +227,21 @@ def test_batch_transform_matches_jax(augment):
 
 
 def test_batch_transform_refuses_corner_targets():
+    """The legacy corner targets come with the cornerLegacy port; the
+    corner families' targets add the tl/br heatmaps to the center
+    batch's arrays (held against JAX in test_torch_corner_models.py)."""
     samples, locs, counts = _raw_batch()
     args = (torch.from_numpy(samples), torch.from_numpy(locs),
             torch.from_numpy(counts), HEAT)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        augment_and_render_batch(*args, augment=False, corner_targets=True)
     with pytest.raises(NotImplementedError, match="slice 7"):
         augment_and_render_batch(*args, augment=False,
                                  corner_targets="legacy")
+    _, center = augment_and_render_batch(*args, augment=False)
+    _, corner = augment_and_render_batch(*args, augment=False,
+                                         corner_targets=True)
+    assert len(corner) == 6
+    for got, want in zip(corner, center):
+        assert torch.equal(got, want)
 
 
 def _head_outputs(seed: int, b: int = 4):
