@@ -35,22 +35,46 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
    they are expected equal). It times the kernel, the plain version and,
    as a yardstick the port never calls, PyTorch's
    ``max_pool2d_with_indices_backward`` fed by its forward's indices;
-5. serves ``cornerCPoolRes10`` and then ``centerOffsetRes10`` at full
-   width through the port's own serve entry point (``serve.build_service``
-   + the HTTP server), from seeded random weights whose heat heads are
-   rescaled so that a few dozen peaks per clip pass the 0.3 threshold,
-   and POSTs a seeded synthetic 3092x2056 slide (48 clips) four times:
-   three raw uint8 bodies and one PNG. Launch counts are set to 0 just
-   before each model's requests and read just after: every corner
-   request must launch the corner-pool kernel exactly four times (top and
-   left in tl_head, bottom and right in br_head), the centerOffset
-   requests never, and no request any other kernel. Detections must be
-   non-empty, inside the slide and the same on every request; two
-   forwards of the slide's clips must agree bit for bit (serving is
-   deterministic). Two of the clips then go through the same model on
-   the CPU, and the card's decode rows must match the CPU's (tolerances
-   at ``compare_rows``);
-6. holds the heatmap-render kernel (``csrc/render_heatmap.cu``) against
+5. holds the deformable gather (``csrc/dcn_gather.cu``, forward and
+   backward) against its plain versions at the DCN's shapes, x (B, 16,
+   16, 512) float32 and N = 16 * 16 * 9 = 2304 samples for B = 48
+   (served), 32 (a train step) and 64 (a validation batch), on seeded
+   positions that mix fractional samples inside the map, integers,
+   samples in (-1, 0) and (size - 1, size), exactly -1 and size, and far
+   out of range; then at ragged shapes (C = 5, 33; H != W; N not a
+   multiple of the block's 8 samples; NaN in x). The forward must equal
+   its plain version to the bit (both evaluate the lerp weights and add
+   the four corners in one order, with no fused multiply-add). The
+   backward's dx is summed with atomics in no fixed order, so dx, dpy
+   and dpx are held to the float32 summation bound 2 (m - 1) 2^-24
+   sum|terms| of each element's m terms (dpy, dpx: m = C + 8, for the
+   products by the weights' derivatives), and with a cotangent in [0.5,
+   1.5) dx's zero pattern must be equal. It times the kernels (launched
+   back to back through their C entry points), their wrappers, their
+   plain versions and, as a yardstick the port never calls,
+   ``F.grid_sample(bilinear, zeros, align_corners=True)`` on the same
+   positions (per-corner zero padding makes the outer cutoff redundant,
+   so it computes the same function up to the rounding of the coordinate
+   normalisation) and its backward, ``grid_sampler_2d_backward``;
+6. serves ``cornerCPoolRes10``, ``centerOffsetRes10`` and
+   ``centerOffsetRes10dcn`` at full width through the port's own serve
+   entry point (``serve.build_service`` + the HTTP server), from seeded
+   random weights whose heat heads are rescaled so that a few dozen
+   peaks per clip pass the 0.3 threshold, and POSTs a seeded synthetic
+   3092x2056 slide (48 clips) four times: three raw uint8 bodies and one
+   PNG. Launch counts are set to 0 just before each model's requests and
+   read just after: every corner request must launch the corner-pool
+   kernel exactly four times (top and left in tl_head, bottom and right
+   in br_head), every DCN request the gather's forward once (the 48
+   clips are one batch), the plain centerOffset requests no kernel, and
+   no request any other kernel. The DCN's seeded samples must include
+   fractional ones inside the map and ones beyond the outer cutoff, and
+   its masks must spread. Detections must be non-empty, inside the slide
+   and the same on every request; two forwards of the slide's clips must
+   agree bit for bit (serving is deterministic). Two of the clips then go
+   through the same model on the CPU, and the card's decode rows must
+   match the CPU's (tolerances at ``compare_rows``);
+7. holds the heatmap-render kernel (``csrc/render_heatmap.cu``) against
    its plain version at the train batch's shape, 32 clips x 30 loc
    records -> 128x128, on the archive's records plus edge cases
    (overlapping objects, invalid lanes, a clip with no objects, centers
@@ -61,12 +85,13 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
    transform, plus corners in (-1, 0), at S - 1 and beyond S) equal to
    the bit. It times both variants and the plain versions; no single
    PyTorch call computes the render, so they have no library time;
-7. trains ``centerOffsetRes10`` at exp74's widths (512x512 clips, batch
+8. trains ``centerOffsetRes10`` at exp74's widths (512x512 clips, batch
    32, bf16, Adam 1.25e-4) through ``python -m scd_resnet_tpu_torch.train``'s
    own entry function on the synthetic archive, with the cuts it prints
    (synthetic data, 40 iterations, validation every 20, a snapshot at
    40), then resumes from that snapshot to iteration 60; then
-   ``cornerCPoolRes10`` under ``configs/cpool_best.json`` the same way.
+   ``cornerCPoolRes10`` under ``configs/cpool_best.json`` and
+   ``centerOffsetRes10dcn`` under ``configs/dcn_full.json`` the same way.
    The launch counts are set to 0 just before each model's first run and
    read just after its resumed one, and must be exact: exp74 launches the
    center render once a train step plus once per validation pre-render
@@ -74,22 +99,31 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
    center render and the two corner renders as often, the max-pool
    backward once a step, the corner-pool forward four times a step and
    four times in each validation forward ([Tr] included), the
-   corner-pool backward four times a step; each run no other kernel.
-   Every loss must be finite, the mean focal loss of the last 10 steps
-   below that of the first 10, the [It] lines must parse (mIoU, AP50 and
-   avgS for exp74; boxAP50 for cpool_best) and the resumed run must
-   start at iteration 41;
-8. takes one float32 train step at full width on 2 clips, augmentation
+   corner-pool backward four times a step; dcn_full launches what exp74
+   launches, plus the gather's forward once a step and once in each
+   validation forward and its backward once a step; each run no other
+   kernel. Every loss must be finite, the mean focal loss of the last 10
+   steps below that of the first 10, the [It] lines must parse (mIoU,
+   AP50 and avgS for exp74 and dcn_full; boxAP50 for cpool_best) and the
+   resumed run must start at iteration 41;
+9. takes one float32 train step at full width on 2 clips, augmentation
    off, from the same weights on the card (the kernels) and on the CPU
-   (the plain versions), for ``centerOffsetRes10`` and
-   ``cornerCPoolRes10``: targets within 1e-6, loss within 1e-4 relative,
-   global gradient norm within 1e-3 relative (float32 convolutions sum
-   in another order on the two devices); for the corner model the
-   gradient of ``tl_head.pool_block.branch1.conv.weight``, which reaches
-   it only through the corner pools, must be non-zero and within 1e-3
-   relative too;
-9. prints one ``{"kernels": [...]}`` line, the card's name and power
-   limit, and as the last line
+   (the plain versions), for ``centerOffsetRes10``, ``cornerCPoolRes10``
+   and ``centerOffsetRes10dcn``: targets within 1e-6, loss within 1e-4
+   relative, global gradient norm within 1e-3 relative (float32
+   convolutions sum in another order on the two devices); a probe
+   gradient must be non-zero and within 1e-3 relative too: for the
+   corner model ``tl_head.pool_block.branch1.conv.weight``, which reaches
+   the loss only through the corner pools; for the DCN model rows 0-17
+   (the offsets) of ``deconv_dcn.conv_offset_mask.weight``, which reach
+   it only through the gather's dpy and dpx, after that conv is drawn
+   from a seed so that the samples sit between pixels. A third step, on
+   the CPU with the clips moved by 1e-7 relative, shows how far the
+   probe moves from float32 rounding alone;
+10. prints one ``{"kernels": [...]}`` line (each kernel's ``launches``
+   from the newest path that runs it, named in ``main_path``, and its
+   counts on every path), the card's name and power limit, and as the
+   last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
 Any failed phase raises and the script exits non-zero without the last
@@ -114,6 +148,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from PIL import Image
 
 from scd_resnet_tpu_torch import serve
@@ -134,18 +169,21 @@ from scd_resnet_tpu_torch.infer.server import create_server
 from scd_resnet_tpu_torch.infer.synthetic import seeded_model, synthetic_slide
 from scd_resnet_tpu_torch.infer.wrapper import make_wrapper
 from scd_resnet_tpu_torch.ops import corner_pool as cp
+from scd_resnet_tpu_torch.ops import dcn
 from scd_resnet_tpu_torch.ops import gaussian
 from scd_resnet_tpu_torch.ops import max_pool as mp
 from scd_resnet_tpu_torch.ops.radius import corner_threshold_radius
 from scd_resnet_tpu_torch.profile_serve import device_ms
 from scd_resnet_tpu_torch.profile_train import (
     CPOOL_BEST,
+    DCN_FULL,
     EXP74,
     SYNTHETIC_ARCHIVE,
     settings,
 )
 from scd_resnet_tpu_torch.train import __main__ as train_cli
 from scd_resnet_tpu_torch.train.factory import NetworkFactory, parse_metric_line
+from scd_resnet_tpu_torch.train.registry import get_model_profile
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SLIDE_W, SLIDE_H = 3092, 2056
@@ -159,9 +197,19 @@ DIRECTIONS = {"top": (2, True), "bottom": (2, False),
               "left": (3, True), "right": (3, False)}
 EDGE_SHAPES = ((2, 3, 37, 45), (1, 2, 1, 33), (1, 2, 70, 1))
 STEM_EDGE_SHAPES = ((2, 3, 37, 45), (1, 2, 1, 1), (1, 2, 6, 7), (1, 1, 2, 3))
-KERNEL_SOURCES = ("corner_pool.cu", "render_heatmap.cu", "max_pool_bwd.cu")
+KERNEL_SOURCES = ("corner_pool.cu", "render_heatmap.cu", "max_pool_bwd.cu",
+                  "dcn_gather.cu")
+# the DCN's input at the S/32 map, (H, W, C), and its 3x3 taps
+DCN_MAP, DCN_TAPS = (16, 16, 512), 9
+DCN_BATCHES = {"served": 48, "train": 32, "validation": 64}
+# (B, H, W, C, N): ragged channels, H != W, N not a multiple of 8, 1x1
+DCN_EDGE_SHAPES = ((2, 7, 9, 5, 103), (3, 5, 11, 33, 77), (1, 1, 1, 1, 9),
+                   (2, 16, 16, 512, 13))
 
 CLIP, HEAT, BATCH = 512, 128, 32  # exp74: clip side, heatmap side, batch
+# relative move of the clips (about one float32 ulp of their values) in
+# phase 9's sensitivity step
+PROBE_NUDGE = 1e-7
 TRAIN_ITERS, RESUME_ITERS, VALIDATE_EVERY = 40, 60, 20
 # float32 operations of one (pixel, object) term inside an object's box:
 # dx, dy, dx*dx, dy*dy, their sum, the division, exp, the accumulation
@@ -241,8 +289,7 @@ def check_corner_pool():
     return results, bound_ms
 
 
-def pool_entries(names, replaces, shape, results, bound_ms, launches,
-                 library=None):
+def pool_entries(names, replaces, shape, results, bound_ms, library=None):
     """One entry per __global__ kernel of ``names`` (dim -> name): the H
     kernel serves top/bottom, the W kernel left/right; times are the mean
     of its two directions. ``library`` (the forward's ``torch.cummax``)
@@ -254,7 +301,7 @@ def pool_entries(names, replaces, shape, results, bound_ms, launches,
         entry = {
             "name": name, "route": "cuda",
             "source": "scd_resnet_tpu_torch/csrc/corner_pool.cu",
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
             "max_abs_err": max(results[d]["max_abs_err"] for d in dirs),
             "ms": mean("ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
@@ -441,12 +488,12 @@ def check_max_pool_bwd():
     return result
 
 
-def max_pool_bwd_entry(result, launches):
+def max_pool_bwd_entry(result):
     return {
         "name": mp.KERNEL_NAME, "route": "cuda",
         "source": "scd_resnet_tpu_torch/csrc/max_pool_bwd.cu",
         "replaces": "tools/pool_bwd_pallas_probe.py:120",
-        "launches": launches, "max_abs_err": result["max_abs_err"],
+        "max_abs_err": result["max_abs_err"],
         "ms": result["ms"], "plain_ms": result["plain_ms"],
         "bound_ms": result["bound_ms"], "bound_by": result["bound_by"],
         "library_ms": result["library_ms"],
@@ -457,7 +504,296 @@ def max_pool_bwd_entry(result, launches):
     }
 
 
-# -- 5. serving ---------------------------------------------------------------
+# -- 5. the deformable gather against its plain versions ----------------------------
+
+def dcn_positions(b: int, h: int, w: int, n: int, gen) -> tuple:
+    """Seeded sampling positions (B, N) on the card: the 3x3 grid of a
+    padded conv over an h x w map moved by N(0, 1.5^2) offsets, with a
+    share of the samples rewritten as integers, values in (-1, 0) and
+    (size - 1, size), exactly -1 and size, and far out of range."""
+    taps = torch.zeros((b, h, w, DCN_TAPS, 2), device="cuda")
+    py, px = dcn.sampling_positions(taps, 3, 3, 1, 1, 1)
+    py = py.reshape(b, -1)[:, :n].contiguous()
+    px = px.reshape(b, -1)[:, :n].contiguous()
+    if py.shape[1] < n:  # a map smaller than N samples: tile it
+        reps = -(-n // py.shape[1])
+        py, px = (t.repeat(1, reps)[:, :n].contiguous() for t in (py, px))
+    py += 1.5 * torch.randn(py.shape, device="cuda", generator=gen)
+    px += 1.5 * torch.randn(px.shape, device="cuda", generator=gen)
+    kind = torch.randint(0, 25, py.shape, device="cuda", generator=gen)
+    u = torch.rand(py.shape, device="cuda", generator=gen)
+    far = 20.0 + 80.0 * u
+    py = torch.where(kind < 3, py.round(), py)
+    px = torch.where(kind < 3, px.round(), px)
+    py = torch.where(kind == 3, -u, py)
+    px = torch.where(kind == 4, (w - 1) + u, px)
+    py = torch.where(kind == 5, torch.full_like(py, -1.0), py)
+    px = torch.where(kind == 6, torch.full_like(px, float(w)), px)
+    py = torch.where(kind == 7, torch.full_like(py, float(h)), py)
+    px = torch.where(kind == 8, torch.full_like(px, -1.0), px)
+    py = torch.where(kind == 9, -far, py)
+    px = torch.where(kind == 10, w + far, px)
+    return py.contiguous(), px.contiguous()
+
+
+def position_kinds(py, px, h: int, w: int):
+    """How many samples fall in each category the checks need."""
+    inside = (py > -1) & (py < h) & (px > -1) & (px < w)
+    integer = (py == py.floor()) & (px == px.floor())
+    return {"fractional_inside": int((inside & ~integer).sum()),
+            "integer_inside": int((inside & integer).sum()),
+            "in_(-1,0)": int(((py > -1) & (py < 0)).sum()),
+            "in_(size-1,size)": int(((px > w - 1) & (px < w)).sum()),
+            "exactly_-1_or_size": int(((py == -1) | (py == h) | (px == -1)
+                                       | (px == w)).sum()),
+            "beyond_cutoff": int((~inside).sum()),
+            "far_out": int(((py.abs() > h + 10) | (px.abs() > w + 10))
+                           .sum())}
+
+
+def dcn_bwd_bounds(x, py, px, g):
+    """The float32 summation bounds of the backward on these inputs (the
+    module docstring): per dx element 2 (m - 1) 2^-24 sum|v w g| over its
+    m terms; per dpy and dpx 2 (C + 8) 2^-24 sum_c v |d w_c| <|g|, |x_c|>."""
+    b, h, w, c = x.shape
+    flat = x.reshape(b, h * w, c).abs()
+    base = (torch.arange(b, device=x.device) * (h * w))[:, None]
+    sums = torch.zeros((b * h * w, c), device=x.device)
+    terms = torch.zeros(b * h * w, device=x.device)
+    abs_py = torch.zeros_like(py)
+    abs_px = torch.zeros_like(px)
+    for idx, valid, weight, d_py, d_px in dcn.bilinear_corners(py, px, h, w):
+        v = valid.float()
+        at = (idx + base).reshape(-1)
+        sums.index_add_(0, at, (g.abs() * (weight * v)[..., None])
+                        .reshape(-1, c))
+        terms.index_add_(0, at, (v * (weight > 0)).reshape(-1))
+        dot = (g.abs() * torch.gather(flat, 1, idx[..., None].expand(
+            -1, -1, c))).sum(-1)
+        abs_py += v * d_py.abs() * dot
+        abs_px += v * d_px.abs() * dot
+    u = 2.0 ** -24
+    dx_bound = 2 * (terms - 1).clamp_min(0)[:, None] * u * sums
+    return (dx_bound.reshape(b, h, w, c), 2 * (c + 8) * u * abs_py,
+            2 * (c + 8) * u * abs_px)
+
+
+def compare_dcn_bwd(x, py, px, g, what, zero_pattern=True) -> float:
+    got = dcn.dcn_gather_bwd(x, py, px, g)
+    torch.cuda.synchronize()
+    ref = dcn.dcn_gather_bwd_plain(x, py, px, g)
+    if zero_pattern and not torch.equal(got[0] == 0, ref[0] == 0):
+        raise AssertionError("dcn_gather_bwd {}: the zero patterns of dx "
+                             "differ".format(what))
+    err = 0.0
+    for name, a, r, bound in zip(("dx", "dpy", "dpx"), got, ref,
+                                 dcn_bwd_bounds(x, py, px, g)):
+        diff = (a - r).abs()
+        if bool((diff > bound).any()) or not bool(torch.isfinite(a).all()):
+            raise AssertionError("dcn_gather_bwd {}: {} beyond the float32 "
+                                 "summation bound, max abs {}".format(
+                                     what, name, diff.max().item()))
+        err = max(err, diff.max().item())
+    return err
+
+
+def dcn_direct_launches(x, py, px, g):
+    """Back-to-back launches of the two C entry points (a Python wrapper
+    call takes about as long to issue as the kernel takes to run); the
+    backward's includes zeroing dx, as its wrapper does."""
+    b, h, w, c = x.shape
+    n = py.shape[1]
+    lib = dcn._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty((b, n, c), device="cuda")
+    dx = torch.zeros_like(x)
+    dpy, dpx = torch.empty_like(py), torch.empty_like(px)
+
+    def forward():
+        return lib.dcn_gather_f32(x.data_ptr(), py.data_ptr(), px.data_ptr(),
+                                  out.data_ptr(), b, h, w, c, n, stream)
+
+    def backward():
+        dx.zero_()
+        return lib.dcn_gather_bwd_f32(
+            x.data_ptr(), py.data_ptr(), px.data_ptr(), g.data_ptr(),
+            dx.data_ptr(), dpy.data_ptr(), dpx.data_ptr(), b, h, w, c, n,
+            stream)
+
+    for fn, name in ((forward, "dcn_gather_f32"),
+                     (backward, "dcn_gather_bwd_f32")):
+        cuda_build.check(lib, fn(), name)
+    return forward, backward
+
+
+def grid_sample_inputs(x, py, px):
+    """x as (B, C, H, W) and the positions as grid_sample's normalised
+    (B, 1, N, 2) grid (x first), align_corners=True."""
+    _, h, w, _ = x.shape
+    grid = torch.stack([px / (w - 1) * 2 - 1, py / (h - 1) * 2 - 1],
+                       dim=-1)[:, None]
+    return x.permute(0, 3, 1, 2).contiguous(), grid.contiguous()
+
+
+def check_dcn_gather():
+    """Phase 5: the gather's forward and backward against their plain
+    versions; their times beside the plain versions', grid_sample's and
+    the bounds, at the served, train and validation shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    h, w, c = DCN_MAP
+    n = h * w * DCN_TAPS
+    fwd, bwd, kinds = {}, {}, None
+    for what, b in DCN_BATCHES.items():
+        x = torch.randn((b, h, w, c), device="cuda", generator=gen)
+        py, px = dcn_positions(b, h, w, n, gen)
+        if kinds is None:
+            kinds = position_kinds(py, px, h, w)
+            if min(kinds.values()) == 0:
+                raise AssertionError("the seeded positions miss a category: "
+                                     "{}".format(kinds))
+        got = dcn.dcn_gather(x, py, px)
+        torch.cuda.synchronize()
+        if not torch.equal(got, dcn.dcn_gather_plain(x, py, px)):
+            raise AssertionError("dcn_gather at {} differs from its plain "
+                                 "version".format((b, h, w, c, n)))
+        forward, backward = dcn_direct_launches(x, py, px, got)
+        x_nchw, grid = grid_sample_inputs(x, py, px)
+        library = F.grid_sample(x_nchw, grid, mode="bilinear",
+                                padding_mode="zeros", align_corners=True)
+        n_bytes = (x.numel() + py.numel() + px.numel() + got.numel()) * 4
+        n_ops = got.numel() * 8  # four products, three adds, the cutoff
+        fwd[what] = {
+            "shape": [b, h, w, c, n], "max_abs_err": 0.0,
+            "ms": device_ms(forward, 50, warmup=5),
+            "wrapper_ms": time_ms(lambda: dcn.dcn_gather(x, py, px)),
+            "plain_ms": time_ms(lambda: dcn.dcn_gather_plain(x, py, px)),
+            "library_ms": time_ms(lambda: F.grid_sample(
+                x_nchw, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True)),
+            "library_max_abs_diff": (library[:, :, 0].transpose(1, 2)
+                                     - got).abs().max().item(),
+            "bound_ms": max(n_bytes / HBM_BYTES_PER_S,
+                            n_ops / FP32_OPS_PER_S) * 1e3,
+            "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S
+            >= n_ops / FP32_OPS_PER_S else "operations",
+        }
+        log("dcn_gather at {} equal to its plain version to the bit: "
+            "kernel {:.4f} ms (wrapper {:.4f} ms), plain {:.4f} ms, "
+            "grid_sample {:.4f} ms (max abs diff {:.3g}), bound {:.4f} ms "
+            "({})".format(tuple(fwd[what]["shape"]), fwd[what]["ms"],
+                          fwd[what]["wrapper_ms"], fwd[what]["plain_ms"],
+                          fwd[what]["library_ms"],
+                          fwd[what]["library_max_abs_diff"],
+                          fwd[what]["bound_ms"], fwd[what]["bound_by"]))
+        if what == "train":
+            # positive cotangent: no sum cancels, so zero patterns match
+            g = torch.rand(got.shape, device="cuda", generator=gen).add_(0.5)
+            g_signed = torch.randn(got.shape, device="cuda", generator=gen)
+            err = max(compare_dcn_bwd(x, py, px, g, "train, g in [0.5, 1.5)"),
+                      compare_dcn_bwd(x, py, px, g_signed, "train, signed g",
+                                      zero_pattern=False))
+            _, backward = dcn_direct_launches(x, py, px, g_signed)
+            g_nchw = g_signed.transpose(1, 2)[:, :, None].contiguous()
+            x_grad = x_nchw.detach().requires_grad_()
+            grid_grad = grid.detach().requires_grad_()
+
+            def library_fwd_bwd():
+                F.grid_sample(x_grad, grid_grad, mode="bilinear",
+                              padding_mode="zeros",
+                              align_corners=True).backward(g_nchw)
+
+            n_bytes = (g.numel() + 2 * x.numel() + 4 * py.numel()) * 4
+            n_ops = g.numel() * 4 * 4  # per corner: dot, product, add, atomic
+            bwd = {
+                "shape": [b, h, w, c, n], "max_abs_err": err,
+                "ms": device_ms(backward, 50, warmup=5),
+                "wrapper_ms": time_ms(lambda: dcn.dcn_gather_bwd(
+                    x, py, px, g_signed)),
+                "plain_ms": time_ms(lambda: dcn.dcn_gather_bwd_plain(
+                    x, py, px, g_signed)),
+                "library_ms": time_ms(
+                    lambda: torch.ops.aten.grid_sampler_2d_backward(
+                        g_nchw, x_nchw, grid, 0, 0, True, [True, True])),
+                "fwd_bwd_ms": time_ms(lambda: dcn.DCNGather.apply(
+                    x.requires_grad_(), py.requires_grad_(),
+                    px.requires_grad_()).backward(g_signed)),
+                "library_fwd_bwd_ms": time_ms(library_fwd_bwd),
+                "bound_ms": max(n_bytes / HBM_BYTES_PER_S,
+                                n_ops / FP32_OPS_PER_S) * 1e3,
+                "bound_by": "bytes" if n_bytes / HBM_BYTES_PER_S
+                >= n_ops / FP32_OPS_PER_S else "operations",
+            }
+            x.requires_grad_(False)
+            py.requires_grad_(False)
+            px.requires_grad_(False)
+            log("dcn_gather_bwd at {}: dx zero pattern equal, within the "
+                "summation bounds, max abs {:.3g}; kernel {:.4f} ms "
+                "(wrapper {:.4f} ms), plain {:.4f} ms, "
+                "grid_sampler_2d_backward {:.4f} ms, bound {:.4f} ms ({}); "
+                "forward + backward: kernels {:.4f} ms, grid_sample "
+                "{:.4f} ms".format(
+                    tuple(bwd["shape"]), err, bwd["ms"], bwd["wrapper_ms"],
+                    bwd["plain_ms"], bwd["library_ms"], bwd["bound_ms"],
+                    bwd["bound_by"], bwd["fwd_bwd_ms"],
+                    bwd["library_fwd_bwd_ms"]))
+            del g, g_signed, g_nchw, x_grad, grid_grad
+        del x, py, px, got, library, x_nchw, grid
+        torch.cuda.empty_cache()
+
+    for b, eh, ew, ec, en in DCN_EDGE_SHAPES:
+        x = torch.randn((b, eh, ew, ec), device="cuda", generator=gen)
+        py, px = dcn_positions(b, eh, ew, en, gen)
+        got = dcn.dcn_gather(x, py, px)
+        if not torch.equal(got, dcn.dcn_gather_plain(x, py, px)):
+            raise AssertionError("dcn_gather at {} differs from its plain "
+                                 "version".format((b, eh, ew, ec, en)))
+        g = torch.rand(got.shape, device="cuda", generator=gen).add_(0.5)
+        compare_dcn_bwd(x, py, px, g, "at {}".format((b, eh, ew, ec, en)))
+        x[torch.rand(x.shape, device="cuda", generator=gen) > 0.9] = \
+            float("nan")
+        got = dcn.dcn_gather(x, py, px)
+        ref = dcn.dcn_gather_plain(x, py, px)
+        if not (torch.equal(got.isnan(), ref.isnan())
+                and torch.equal(got.nan_to_num(), ref.nan_to_num())):
+            raise AssertionError("dcn_gather at {} with NaN inputs differs "
+                                 "from its plain version".format(
+                                     (b, eh, ew, ec, en)))
+    torch.cuda.synchronize()
+    log("dcn_gather and dcn_gather_bwd agree with their plain versions at "
+        "edge shapes {} (the forward with NaN inputs too); position kinds "
+        "at the served shape {}".format(list(DCN_EDGE_SHAPES), kinds))
+    return fwd, bwd, kinds
+
+
+def dcn_entries(fwd, bwd, kinds):
+    """The forward's entry at the train step's shape (its served and
+    validation shapes beside it) and the backward's."""
+    train = fwd["train"]
+    source = "scd_resnet_tpu_torch/csrc/dcn_gather.cu"
+    return [
+        {"name": dcn.KERNEL_NAME, "route": "cuda", "source": source,
+         "replaces": "scd_resnet_tpu/ops/pallas_kernels.py:190",
+         "max_abs_err": 0.0, "ms": train["ms"],
+         "wrapper_ms": train["wrapper_ms"], "plain_ms": train["plain_ms"],
+         "bound_ms": train["bound_ms"], "bound_by": train["bound_by"],
+         "library_ms": train["library_ms"],
+         "library_call": "F.grid_sample(bilinear, zeros, align_corners=True)",
+         "library_max_abs_diff": train["library_max_abs_diff"],
+         "shape": train["shape"], "by_shape": fwd, "position_kinds": kinds},
+        {"name": dcn.BWD_KERNEL_NAME, "route": "cuda", "source": source,
+         "replaces": "scd_resnet_tpu/ops/pallas_kernels.py:206",
+         "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
+         "wrapper_ms": bwd["wrapper_ms"], "plain_ms": bwd["plain_ms"],
+         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
+         "library_ms": bwd["library_ms"],
+         "library_call": "torch.ops.aten.grid_sampler_2d_backward",
+         "fwd_bwd_ms": bwd["fwd_bwd_ms"],
+         "library_fwd_bwd_ms": bwd["library_fwd_bwd_ms"],
+         "shape": bwd["shape"]},
+    ]
+
+
+# -- 6. serving ---------------------------------------------------------------
 
 def compare_rows(family, gpu_rows, cpu_rows):
     """Card against CPU on the same clips, both in exact float32 (TF32
@@ -523,11 +859,14 @@ def serve_model(arch: str, seed: int, slide, build_dir, card: str,
                                  "X-Height": str(height)})] * (REQUESTS - 1)
     bodies.append((png.getvalue(), {}))
     family = service.contract
-    # top and left pools in tl_head, bottom and right in br_head; no other
-    # kernel
-    per_request = {name: 2 if family == "corner"
-                   and name in cp.KERNEL_NAMES.values() else 0
-                   for name in cuda_build.LAUNCHES}
+    # top and left pools in tl_head, bottom and right in br_head; the
+    # DCN's gather once for the request's one batch; no other kernel
+    per_request = {name: 0 for name in cuda_build.LAUNCHES}
+    if family == "corner":
+        per_request.update({name: 2 for name in cp.KERNEL_NAMES.values()})
+    if is_dcn(arch):
+        per_request[dcn.KERNEL_NAME] = 1
+        samples = dcn_served_samples(model, clips)
     latencies, counts = [], []
     try:
         cuda_build.reset_launches()
@@ -580,13 +919,47 @@ def serve_model(arch: str, seed: int, slide, build_dir, card: str,
             arch, REQUESTS, counts[0], launches,
             ["{:.1f}".format(t) for t in latencies],
             n_clips / (min(latencies) / 1e3), card, pick, firm))
-    return {"arch": arch, "clips": n_clips, "detections": counts[0],
-            "latency_ms": latencies, "server_busy_s": metrics["busy_seconds"],
-            "server_clips_per_s": metrics["clips_per_second"],
-            "launches": launches}
+    result = {"arch": arch, "clips": n_clips, "detections": counts[0],
+              "latency_ms": latencies,
+              "server_busy_s": metrics["busy_seconds"],
+              "server_clips_per_s": metrics["clips_per_second"],
+              "launches": launches}
+    if is_dcn(arch):
+        result["dcn_samples"] = samples
+    return result
 
 
-# -- 6. the render kernel against its plain version -----------------------------
+def is_dcn(arch: str) -> bool:
+    return bool(get_model_profile(arch).model_params.get("dcn"))
+
+
+def dcn_served_samples(model, clips):
+    """Where the seeded DCN samples the served clips' S/32 map: the
+    fractional samples inside the map and those beyond the outer cutoff
+    must both be there, and the masks must spread around 0.5."""
+    seen = {}
+    hook = model.deconv_dcn.register_forward_hook(
+        lambda m, args, out: seen.__setitem__("x", args[0]))
+    try:
+        with torch.inference_mode():
+            model(clips)
+            offset, mask = model.deconv_dcn.offsets_and_mask(seen["x"].float())
+    finally:
+        hook.remove()
+    py, px = dcn.sampling_positions(offset, 3, 3, 1, 1, 1)
+    kinds = position_kinds(py, px, *seen["x"].shape[2:])
+    kinds["mask_min_max_std"] = [mask.min().item(), mask.max().item(),
+                                 mask.std().item()]
+    if not (kinds["fractional_inside"] > 0 and kinds["beyond_cutoff"] > 0
+            and mask.std().item() > 0.05):
+        raise AssertionError("the seeded DCN samples no fractional or no "
+                             "out-of-range positions, or its masks do not "
+                             "spread: {}".format(kinds))
+    log("centerOffsetRes10dcn served samples: {}".format(kinds))
+    return kinds
+
+
+# -- 7. the render kernel against its plain version -----------------------------
 
 def start_archive(path: str):
     """Write the synthetic training archive in a subprocess unless it is
@@ -790,7 +1163,7 @@ def check_render(archive: str):
     return result, corner
 
 
-def render_entries(center, corner, launches):
+def render_entries(center, corner):
     entries = []
     for name, result in ((gaussian.KERNEL_NAME, center),
                          (gaussian.CORNER_KERNEL_NAME, corner)):
@@ -798,7 +1171,7 @@ def render_entries(center, corner, launches):
             "name": name, "route": "cuda",
             "source": "scd_resnet_tpu_torch/csrc/render_heatmap.cu",
             "replaces": "scd_resnet_tpu/ops/pallas_kernels.py:77",
-            "launches": launches[name], "max_abs_err": result["max_abs_err"],
+            "max_abs_err": result["max_abs_err"],
             "ms": result["ms"], "wrapper_ms": result["wrapper_ms"],
             "plain_ms": result["plain_ms"],
             "bound_ms": result["bound_ms"], "bound_by": result["bound_by"],
@@ -809,7 +1182,7 @@ def render_entries(center, corner, launches):
     return entries
 
 
-# -- 7. training exp74 and cpool_best -------------------------------------------------
+# -- 8. training exp74, cpool_best and dcn_full -----------------------------------------
 
 def write_config(path: str, values) -> str:
     with open(path, "w") as f:
@@ -824,10 +1197,13 @@ def expected_launches(config, steps: int, n_val: int):
     expected = {name: 0 for name in cuda_build.LAUNCHES}
     expected[gaussian.KERNEL_NAME] = steps + chunks
     expected[mp.KERNEL_NAME] = steps
+    batch = config["validationBatchSize"]
+    per_validation = 1 + (1 if n_val <= batch else n_val // batch)
+    forwards = steps + steps // config["validation"] * per_validation
+    if is_dcn(config["modelName"]):
+        expected[dcn.KERNEL_NAME] = forwards
+        expected[dcn.BWD_KERNEL_NAME] = steps
     if config["modelName"].startswith("cornerCPool"):
-        batch = config["validationBatchSize"]
-        per_validation = 1 + (1 if n_val <= batch else n_val // batch)
-        forwards = steps + steps // config["validation"] * per_validation
         expected[gaussian.CORNER_KERNEL_NAME] = 2 * (steps + chunks)
         for dim in cp.KERNEL_NAMES:
             expected[cp.KERNEL_NAMES[dim]] = 2 * forwards
@@ -912,17 +1288,38 @@ def train_config(config: str, data_dir: str, work: str, metrics,
             "it_line": it_lines[-1].strip(), "launches": launches}
 
 
-# -- 8. one float32 step, card against CPU ------------------------------------------
+# -- 9. one float32 step, card against CPU ------------------------------------------
 
 def global_grad_norm(model) -> float:
     return math.sqrt(sum(float(p.grad.double().pow(2).sum())
                          for p in model.parameters() if p.grad is not None))
 
 
-def step_card_vs_cpu(config: str, work: str, probe: str = None):
+def fractional_offsets(model) -> None:
+    """Draw the DCN's offset conv N(0, 0.01 / fan_in) from a seed: offsets
+    of a fraction of a pixel, so that the samples sit between pixels and
+    a few beyond the map (a fresh DCN samples the integer grid). With
+    offsets ten times larger the float32 step is worse conditioned: the
+    gradients below the DCN (the probe, the DCN's kernel, layer4's) then
+    move by more than 1e-3 when the clips move by one float32 ulp, on the
+    CPU alone. Phase 9 measures that sensitivity at this scale beside the
+    card's difference (``PROBE_NUDGE``)."""
+    conv = model.deconv_dcn.conv_offset_mask
+    gen = torch.Generator().manual_seed(19)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen)
+                          * (0.1 / math.sqrt(conv.weight[0].numel())))
+        conv.bias.zero_()
+
+
+def step_card_vs_cpu(config: str, work: str, probe=None, prepare=None):
     """One float32 step of ``config``'s model on 2 clips, card against
-    CPU; ``probe`` names a parameter whose gradient must be non-zero and
-    agree too."""
+    CPU; ``probe`` is (parameter name, rows) whose gradient must be
+    non-zero and agree too; ``prepare`` changes both models' weights
+    alike before the step. With a probe, a third step on the CPU takes
+    the clips moved by ``PROBE_NUDGE`` relative: how far the probe moves
+    then is the float32 step's own sensitivity, reported beside the
+    card's difference."""
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     path = make_archive(os.path.join(work, "scdx16p100.d"), num_images=1,
@@ -930,25 +1327,35 @@ def step_card_vs_cpu(config: str, work: str, probe: str = None):
     dataset = SCDDataset(path, None, test_set=2, storage_dtype="float32",
                          device="cpu")
     batch = (dataset.samples[:2], dataset.locs[:2], dataset.counts[:2])
+    # run -> device; "nudged" takes the clips moved by PROBE_NUDGE
+    runs = {"cuda": "cuda", "cpu": "cpu"}
+    if probe:
+        runs["nudged"] = "cpu"
     factories = {}
-    for device in ("cuda", "cpu"):
+    for run, device in runs.items():
         cfg = Configuration()
-        cfg.update_config(settings(config, work, os.path.join(work, device),
+        cfg.update_config(settings(config, work, os.path.join(work, run),
                                    precision="float32", batchSize=2,
                                    residency="host"))
-        factories[device] = NetworkFactory(cfg, dataset=dataset, device=device)
+        factories[run] = NetworkFactory(cfg, dataset=dataset, device=device)
+        if prepare is not None:
+            prepare(factories[run].model)
     card, cpu = factories["cuda"], factories["cpu"]
     for key, value in cpu.model.state_dict().items():
         if not torch.equal(card.model.state_dict()[key].cpu(), value):
             raise AssertionError("card and CPU start from other weights")
     out = {}
-    for device, factory in factories.items():
-        loss, _ = factory.train(*batch, draws=identity_draws(
+    for run, factory in factories.items():
+        samples = batch[0]
+        if run == "nudged":
+            noise = np.random.default_rng(20).standard_normal(samples.shape)
+            samples = (samples * (1 + PROBE_NUDGE * noise)).astype(np.float32)
+        loss, _ = factory.train(samples, *batch[1:], draws=identity_draws(
             2, CLIP, factory.device))
-        grad = factory.model.get_parameter(probe).grad.cpu() if probe \
-            else None
-        out[device] = (loss.item(), factory._last_batch[1],
-                       global_grad_norm(factory.model), grad)
+        grad = factory.model.get_parameter(probe[0]).grad[probe[1]].cpu() \
+            if probe else None
+        out[run] = (loss.item(), factory._last_batch[1],
+                    global_grad_norm(factory.model), grad)
     targets = [0, 4, 5] if card.profile.corner_targets else [0]
     heat_err = max(compare_heat(out["cuda"][1][i].cpu(), out["cpu"][1][i],
                                 "train-step target {}".format(i))
@@ -962,20 +1369,26 @@ def step_card_vs_cpu(config: str, work: str, probe: str = None):
         result["probe_grad_norm"] = float(g_card.norm())
         result["probe_grad_rel"] = float((g_card - g_cpu).norm()
                                          / g_cpu.norm())
+        result["probe_nudged_cpu_rel"] = float(
+            (out["nudged"][3] - g_cpu).norm() / g_cpu.norm())
     log("one float32 step of {} on 2 clips: targets max abs {:.3g}; loss "
         "card {:.6f} cpu {:.6f} (rel {:.2e}); gradient norm card {:.6f} cpu "
         "{:.6f} (rel {:.2e}){}".format(
             card.config.modelName, heat_err, out["cuda"][0], out["cpu"][0],
             loss_rel, out["cuda"][2], out["cpu"][2], norm_rel,
-            "; {} gradient norm {:.6g} (rel {:.2e})".format(
-                probe, result["probe_grad_norm"], result["probe_grad_rel"])
+            "; {} rows {}:{} gradient norm {:.6g} (rel {:.2e}; the CPU's "
+            "own moves by {:.2e} when the clips move by {:g})".format(
+                probe[0], probe[1].start or 0, probe[1].stop or "",
+                result["probe_grad_norm"],
+                result["probe_grad_rel"], result["probe_nudged_cpu_rel"],
+                PROBE_NUDGE)
             if probe else ""))
     if not (loss_rel <= 1e-4 and norm_rel <= 1e-3):
         raise AssertionError("the card's step differs from the CPU's")
     if probe and not (result["probe_grad_norm"] > 0
                       and result["probe_grad_rel"] <= 1e-3):
         raise AssertionError("the gradient of {} on the card is zero or "
-                             "differs from the CPU's".format(probe))
+                             "differs from the CPU's".format(probe[0]))
     return result
 
 
@@ -1016,19 +1429,21 @@ def main() -> int:
             "\n".join(cuda_build.build_log(s) for s in KERNEL_SOURCES)))
         t0 = mark("build", t0)
 
-        # 2-4. the corner-pool kernels and the stem pool's backward against
-        # their plain versions
+        # 2-5. the corner-pool kernels, the stem pool's backward and the
+        # deformable gather against their plain versions
         pool_results, pool_bound = check_corner_pool()
         bwd_results, bwd_bound = check_corner_pool_bwd()
         stem = check_max_pool_bwd()
+        dcn_fwd, dcn_bwd, dcn_kinds = check_dcn_gather()
         t0 = mark("kernel_checks", t0)
 
-        # 5. serve both models; each resets the counts just before its
-        # requests
+        # 6. serve the three models; each resets the counts just before
+        # its requests
         slide = synthetic_slide(SLIDE_H, SLIDE_W, seed=2056)
         served = [serve_model(arch, seed, slide, build_dir, gpu_line)
                   for arch, seed in (("cornerCPoolRes10", 10),
-                                     ("centerOffsetRes10", 11))]
+                                     ("centerOffsetRes10", 11),
+                                     ("centerOffsetRes10dcn", 12))]
         t0 = mark("serving", t0)
         finish_archive(writer, archive)
     finally:
@@ -1036,43 +1451,58 @@ def main() -> int:
             writer.kill()
             writer.wait()
 
-    # 6. the render kernel's variants against their plain versions
+    # 7. the render kernel's variants against their plain versions
     center, corner = check_render(archive)
     t0 = mark("render_check", t0)
-    # 7. train exp74 and cpool_best and resume each; the counts are reset
-    # inside, just before each first run
+    # 8. train exp74, cpool_best and dcn_full and resume each; the counts
+    # are reset inside, just before each first run
     trained = [train_config(EXP74, data_dir, os.path.join(build_dir, "exp74"),
                             ("mIoU", "AP50", "avgS")),
                train_config(CPOOL_BEST, data_dir,
                             os.path.join(build_dir, "cpool_best"),
-                            ("boxAP50",))]
+                            ("boxAP50",)),
+               train_config(DCN_FULL, data_dir,
+                            os.path.join(build_dir, "dcn_full"),
+                            ("mIoU", "AP50", "avgS"))]
     t0 = mark("training", t0)
-    # 8. one float32 step on the card and on the CPU, for each model
+    # 9. one float32 step on the card and on the CPU, for each model
     steps = [step_card_vs_cpu(EXP74, os.path.join(build_dir, "step_exp74")),
              step_card_vs_cpu(CPOOL_BEST, os.path.join(build_dir,
                                                        "step_cpool"),
-                              probe="tl_head.pool_block.branch1.conv.weight")]
+                              probe=("tl_head.pool_block.branch1.conv.weight",
+                                     slice(None))),
+             step_card_vs_cpu(DCN_FULL, os.path.join(build_dir, "step_dcn"),
+                              probe=("deconv_dcn.conv_offset_mask.weight",
+                                     slice(0, 2 * 9)),
+                              prepare=fractional_offsets)]
     mark("step_card_vs_cpu", t0)
 
-    # 9. results: launches are the cpool_best runs' (this slice's path);
-    # each entry also names every path's counts
+    # 10. results: every path's counts, oldest first; each kernel's
+    # launches are those of the newest path that runs it
     paths = {"serve_cornerCPoolRes10": served[0]["launches"],
+             "serve_centerOffsetRes10dcn": served[2]["launches"],
              "train_exp74": trained[0]["launches"],
-             "train_cpool_best": trained[1]["launches"]}
-    main_path = trained[1]["launches"]
-    kernels = (render_entries(center, corner, main_path)
+             "train_cpool_best": trained[1]["launches"],
+             "train_dcn_full": trained[2]["launches"]}
+    kernels = (render_entries(center, corner)
                + pool_entries(cp.KERNEL_NAMES,
                               "scd_resnet_tpu/ops/pallas_kernels.py:260",
                               POOL_SHAPE, pool_results, pool_bound,
-                              main_path, library=True)
+                              library=True)
                + pool_entries(cp.BWD_KERNEL_NAMES,
                               "scd_resnet_tpu/ops/pallas_kernels.py:344",
-                              POOL_TRAIN_SHAPE, bwd_results, bwd_bound,
-                              main_path)
-               + [max_pool_bwd_entry(stem, main_path[mp.KERNEL_NAME])])
+                              POOL_TRAIN_SHAPE, bwd_results, bwd_bound)
+               + [max_pool_bwd_entry(stem)]
+               + dcn_entries(dcn_fwd, dcn_bwd, dcn_kinds))
     for entry in kernels:
         entry["launches_by_path"] = {path: counts[entry["name"]]
                                      for path, counts in paths.items()}
+        runs = [path for path, counts in paths.items()
+                if counts[entry["name"]] > 0]
+        if not runs:
+            raise AssertionError("no path launched {}".format(entry["name"]))
+        entry["main_path"] = runs[-1]
+        entry["launches"] = paths[runs[-1]][entry["name"]]
     for entry in kernels:
         if entry["name"] in cp.KERNEL_NAMES.values():
             direction = [d for d, (dd, _) in DIRECTIONS.items()

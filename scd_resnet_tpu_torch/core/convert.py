@@ -14,6 +14,13 @@ auto-names (``ResNetBackbone_0/Conv_0``, ``BasicBlock_k/BatchNorm_j``,
   ``running_mean/running_var`` (flax wraps its ``nn.BatchNorm`` in one
   more ``BatchNorm_0`` scope).
 
+flax numbers a backbone's BatchNorms in the order it builds them: the
+stem's is ``BatchNorm_0``, then (with ``deconv_dcn``) the DCN's, then one
+per deconv stage, so the deconvs' start at ``BatchNorm_2`` in a DCN
+model and at ``BatchNorm_1`` without one. The DCN's kernels
+(``deconv_dcn/kernel`` and ``deconv_dcn/conv_offset_mask/kernel``) are
+HWIO like every conv's.
+
 For the ``centerOffset`` family the result carries the reference's names,
 the same dict ``scd_resnet_tpu/core/torch_convert.export_center_net_residual``
 writes. ``cornerRes*`` and ``cornerCombinedRes*`` share that layout with
@@ -110,11 +117,21 @@ def _backbone(w: _Writer, prefix: str, num_layers: int) -> None:
                 b.conv(key + ".downsample.0", "Conv_{}".format(n_convs))
                 b.bn(key + ".downsample.1", "BatchNorm_{}".format(n_convs))
             blk += 1
+    bn = 1  # the next BatchNorm_{bn} after the stem's
+    if "deconv_dcn" in w.params:
+        dcn = w.sub("deconv_dcn")
+        w.sd[prefix + "deconv_dcn.weight"] = _conv(dcn.params["kernel"])
+        w.sd[prefix + "deconv_dcn.bias"] = _tensor(dcn.params["bias"])
+        dcn.conv(prefix + "deconv_dcn.conv_offset_mask", "conv_offset_mask",
+                 bias=True)
+        w.bn(prefix + "deconv_dcn_bn", "BatchNorm_{}".format(bn))
+        bn += 1
     for j in range(3):
         w.sd["{}deconvolutionLayers.{}.weight".format(prefix, 3 * j)] = \
             _deconv(w.params["ConvTranspose_{}".format(j)]["kernel"])
         w.bn("{}deconvolutionLayers.{}".format(prefix, 3 * j + 1),
-             "BatchNorm_{}".format(j + 1))
+             "BatchNorm_{}".format(bn))
+        bn += 1
 
 
 def _terminal_heads(root: _Writer, num_layers: int, heads) -> None:

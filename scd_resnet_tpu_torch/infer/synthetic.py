@@ -5,10 +5,14 @@ path without trained weights (``chip_smoke.py``, ``profile_serve``).
 background with dark elliptic blobs about the size of sperm heads.
 
 ``seeded_model`` builds a profile's model with weights drawn from a seed:
-conv kernels N(0, 1/fan_in), conv biases and BatchNorm bias/mean
-N(0, 0.1), BatchNorm scale/var U(0.5, 1.5). Random weights give a heat
-map with no structure, so each heat head's final 1x1 conv is then made
-zero-mean over its inputs and rescaled on the caller's clips: its logits
+conv kernels (the DCN's kernel and its offset conv included) N(0,
+1/fan_in), conv biases and BatchNorm bias/mean N(0, 0.1), BatchNorm
+scale/var U(0.5, 1.5). A DCN's offsets then land between pixels, some
+beyond the map, and its masks spread around 0.5. Random weights give a
+heat map with no structure, so the heat heads (the ``TerminalHead``s
+that carry the -2.19 heat prior, found in the built model) have their
+final 1x1 conv made zero-mean over its inputs and rescaled on the
+caller's clips, output channel by output channel: each channel's logits
 get standard deviation 2 and their 99.7th percentile sits at the 0.3
 serving threshold, which leaves a few dozen distinct peaks per clip.
 """
@@ -22,14 +26,9 @@ import torch
 from torch import nn
 
 from scd_resnet_tpu_torch.infer.analyse import SCORE_THRESHOLD
+from scd_resnet_tpu_torch.models.deformable import DCN
+from scd_resnet_tpu_torch.models.resnet import TerminalHead
 from scd_resnet_tpu_torch.train.registry import get_model_profile
-
-# family -> heat heads' final-conv modules and their output names
-HEAT_HEADS = {
-    "centerOffset": {"heatmap": "heatmap"},
-    "corner": {"heatmap": "heatmap", "tl_head.terminal": "tl",
-               "br_head.terminal": "br"},
-}
 
 
 def synthetic_slide(height: int, width: int, seed: int) -> np.ndarray:
@@ -52,7 +51,13 @@ def seeded_model(arch: str, seed: int, clips: torch.Tensor) -> nn.Module:
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for module in model.modules():
-            if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)):
+            if isinstance(module, DCN):
+                w = module.weight
+                w.copy_(torch.randn(w.shape, generator=gen)
+                        / math.sqrt(w[0].numel()))
+                module.bias.copy_(0.1 * torch.randn(module.bias.shape,
+                                                    generator=gen))
+            elif isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)):
                 w = module.weight
                 fan_in = w[0].numel() if isinstance(module, nn.Conv2d) \
                     else w.shape[0] * w.shape[2] * w.shape[3]
@@ -66,19 +71,32 @@ def seeded_model(arch: str, seed: int, clips: torch.Tensor) -> nn.Module:
                 module.running_var.copy_(0.5 + torch.rand(n, generator=gen))
                 module.bias.copy_(0.1 * torch.randn(n, generator=gen))
                 module.running_mean.copy_(0.1 * torch.randn(n, generator=gen))
-        heads = HEAT_HEADS[profile.family]
-        finals = {name: model.get_submodule(name)[-1] for name in heads}
-        for conv in finals.values():
-            conv.weight.sub_(conv.weight.mean(dim=1, keepdim=True))
-            conv.bias.zero_()
+        heads = [m for m in model.modules() if isinstance(m, TerminalHead)
+                 and m.spec.final_bias is not None]
+        if not heads:
+            raise ValueError("{} has no heat head to calibrate".format(arch))
+        for head in heads:
+            head[-1].weight.sub_(head[-1].weight.mean(dim=1, keepdim=True))
+            head[-1].bias.zero_()
         model = model.to(clips.device).eval()
-        with torch.inference_mode():
-            outs = model(clips)
-        for name, conv in finals.items():
-            z = outs[heads[name]].double().flatten()
-            scale = 2.0 / z.std().item()
-            q = torch.quantile(z, 0.997).item()
-            conv.weight.mul_(scale)
-            conv.bias.fill_(math.log(SCORE_THRESHOLD / (1 - SCORE_THRESHOLD))
-                            - scale * q)
+        logits = {}
+        hooks = [head.register_forward_hook(
+            lambda m, args, out: logits.__setitem__(id(m), out))
+            for head in heads]
+        try:
+            with torch.inference_mode():
+                model(clips)
+        finally:
+            for hook in hooks:
+                hook.remove()
+        for head in heads:
+            conv = head[-1]
+            z = logits[id(head)].double().transpose(0, 1).flatten(1)
+            for channel, zc in enumerate(z):
+                scale = 2.0 / zc.std().item()
+                q = torch.quantile(zc, 0.997).item()
+                conv.weight[channel].mul_(scale)
+                conv.bias[channel].fill_(
+                    math.log(SCORE_THRESHOLD / (1 - SCORE_THRESHOLD))
+                    - scale * q)
     return model

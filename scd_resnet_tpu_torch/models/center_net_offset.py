@@ -56,12 +56,14 @@ def _terminals(hidden: int) -> List[TerminalSpec]:
 
 class CenterNetResidual(ResNetBackbone):
     """ResNet-backed center detector (centerNetOffset.py:150-168);
-    ``terminal_hidden=64`` is the ``h``/``q`` variant."""
+    ``terminal_hidden=64`` is the ``h``/``q`` variant, ``dcn=True`` the
+    deformable prologue before the first deconv (``centerOffsetRes10dcn``)."""
 
     def __init__(self, num_layers: int = 10,
                  dims: Sequence[int] = DEFAULT_DIMENSIONS,
-                 terminal_hidden: int = 128):
-        super().__init__(num_layers, _terminals(terminal_hidden), dims)
+                 terminal_hidden: int = 128, dcn: bool = False):
+        super().__init__(num_layers, _terminals(terminal_hidden), dims,
+                         deconv_dcn=dcn)
 
 
 def decode_center_net(out_dict: Dict[str, torch.Tensor], k: int = 100,

@@ -10,6 +10,12 @@ from the reference, or from ``core/convert.py``, loads with
 The flax deconvs are ``ConvTranspose(4x4, stride 2, padding "SAME")``;
 their counterpart is ``ConvTranspose2d(k=4, s=2, p=1)`` with the kernel
 flipped spatially and its axes swapped (``core/convert.py``).
+
+``deconv_dcn=True`` puts a same-width modulated deformable conv
+(``models/deformable.DCN``) + BatchNorm + ReLU before the first deconv,
+at the S/32 map, as the JAX backbone's ``deconv_dcn`` does (l.234-242);
+its modules are ``deconv_dcn`` and ``deconv_dcn_bn``, and a backbone
+without it has the same state dict as before.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from scd_resnet_tpu_torch.models.deformable import DCN, lecun_normal_
 from scd_resnet_tpu_torch.models.layers import batch_norm, conv1x1, conv3x3, stem
 
 DEFAULT_DIMENSIONS = (64, 64, 128, 256, 512, 256, 256, 256)
@@ -143,7 +150,8 @@ class ResNetBackbone(nn.Module):
     features for families with their own head prologues."""
 
     def __init__(self, num_layers: int, terminals: Sequence[TerminalSpec],
-                 dimensions: Sequence[int] = DEFAULT_DIMENSIONS):
+                 dimensions: Sequence[int] = DEFAULT_DIMENSIONS,
+                 deconv_dcn: bool = False):
         super().__init__()
         block, stages = RESNET_SPEC[num_layers]
         dims = tuple(dimensions)
@@ -157,6 +165,9 @@ class ResNetBackbone(nn.Module):
             layer += [block(out, features) for _ in range(1, blocks)]
             setattr(self, "layer{}".format(stage_idx + 1), nn.Sequential(*layer))
             in_features = out
+        self.deconv_dcn = DCN(in_features, in_features) if deconv_dcn \
+            else None
+        self.deconv_dcn_bn = batch_norm(in_features) if deconv_dcn else None
         deconvs = []
         for features in dims[5:8]:
             deconv = nn.ConvTranspose2d(in_features, features, 4, 2, 1,
@@ -173,16 +184,13 @@ class ResNetBackbone(nn.Module):
     def forward(self, x: torch.Tensor):
         x = self.preprocess(x)
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        if self.deconv_dcn is not None:
+            # float32 out of the DCN; the deconvs take it in autocast's type
+            x = torch.relu(self.deconv_dcn_bn(self.deconv_dcn(x)))
         x = self.deconvolutionLayers(x)
         if not self.terminal_names:
             return x
         return {name: getattr(self, name)(x) for name in self.terminal_names}
-
-
-# flax's lecun_normal: variance_scaling(1, "fan_in", "truncated_normal"),
-# a normal truncated to +-2 std, its std divided by this constant so the
-# truncated distribution has variance 1 / fan_in
-_TRUNCATED_NORMAL_STD = 0.87962566103423978
 
 
 def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
@@ -197,23 +205,30 @@ def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
     - the heads' final 1x1 convs (``_final_conv_inits``, l.146-157): the
       heatmap's ``lecun_normal`` with bias ``constant(-2.19)``, the
       regression and offset heads' ``normal(stddev=0.001)`` with bias 0;
+    - the DCN (``scd_resnet_tpu/models/deformable.py:34-53``): its kernel
+      ``lecun_normal`` on fan-in Cin * 9, its bias 0, and
+      ``conv_offset_mask``'s kernel and bias ``zeros_init()``;
     - BatchNorm: flax's scale 1, bias 0, running mean 0, variance 1.
     """
     finals = {id(m[-1]): m.spec for m in model.modules()
               if isinstance(m, TerminalHead)}
+    zeroed = {id(m.conv_offset_mask) for m in model.modules()
+              if isinstance(m, DCN)}
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, nn.ConvTranspose2d):
+            if isinstance(m, DCN):
+                lecun_normal_(m.weight, generator=generator)
+                m.bias.zero_()
+            elif isinstance(m, nn.ConvTranspose2d):
                 m.weight.normal_(0.0, 0.001, generator=generator)
             elif isinstance(m, nn.Conv2d):
                 spec = finals.get(id(m))
-                if spec is not None and spec.small_init:
+                if id(m) in zeroed:
+                    m.weight.zero_()
+                elif spec is not None and spec.small_init:
                     m.weight.normal_(0.0, 0.001, generator=generator)
                 else:
-                    std = (1.0 / m.weight[0].numel()) ** 0.5 \
-                        / _TRUNCATED_NORMAL_STD
-                    nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std,
-                                          2.0 * std, generator=generator)
+                    lecun_normal_(m.weight, generator=generator)
                 if m.bias is not None:
                     bias = spec.final_bias if spec is not None else None
                     m.bias.fill_(bias if bias is not None else 0.0)

@@ -1,0 +1,269 @@
+"""Modulated deformable convolution (DCNv2): the bilinear gather, its
+backward, and the convolution built on them.
+
+Counterpart of ``scd_resnet_tpu/ops/dcn.py`` (l.82-217). The convolution
+is a "deformable im2col": every output pixel samples the input at K
+float positions (its kernel taps moved by learned offsets), each sample
+is scaled by its modulation mask, and one matrix product against the
+kernel gives the output. The sampling is the gather
+(:func:`dcn_gather`): x (B, H, W, C) channels-last, as the JAX package
+keeps it, read at float positions py, px (B, N) -> (B, N, C). Each of
+the four bilinear corners is zeroed when it lies outside the map, and a
+whole sample is zeroed when it leaves the outer cutoff
+(-1, H) x (-1, W) (the reference's ``dmcn_im2col_bilinear``).
+
+Two CUDA kernels in ``csrc/dcn_gather.cu`` port the TPU kernel
+``dcn_gather_pallas`` (``scd_resnet_tpu/ops/pallas_kernels.py:190``):
+:func:`dcn_gather` wraps the forward, :func:`dcn_gather_bwd` the backward,
+which returns dx, dpy and dpx (in the JAX package that backward is XLA's
+derivative of the gather, l.206-216). For a CUDA tensor each launches
+its kernel or raises; for a CPU tensor each computes its plain version.
+:class:`DCNGather` ties the two together for autograd.
+
+There is one route: the JAX package's onehot and Pallas lowerings (and
+its ``SCD_DCN_METHOD`` switch) compute the same function and stay on the
+JAX side; the tests hold the plain versions here against all three.
+PSROI pooling is not ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import List, Optional, Tuple
+
+import torch
+
+from scd_resnet_tpu_torch.core import cuda_build
+
+KERNEL_SOURCE = "dcn_gather.cu"
+KERNEL_NAME = "dcn_gather"
+BWD_KERNEL_NAME = "dcn_gather_bwd"
+for _name in (KERNEL_NAME, BWD_KERNEL_NAME):
+    cuda_build.LAUNCHES.setdefault(_name, 0)
+
+# (corner row, corner column) offsets from (floor(py), floor(px)), in the
+# order the forward adds the corners
+CORNERS = ((0, 0), (0, 1), (1, 0), (1, 1))
+
+
+def bilinear_corners(py: torch.Tensor, px: torch.Tensor, h: int, w: int
+                     ) -> List[Tuple[torch.Tensor, ...]]:
+    """The four bilinear corners of every sample, in :data:`CORNERS`
+    order: (flat index into the H*W map, clamped into range; validity,
+    the corner in range and the sample inside the outer cutoff; lerp
+    weight; its derivative by py; its derivative by px)."""
+    y0 = torch.floor(py)
+    x0 = torch.floor(px)
+    ly = py - y0
+    lx = px - x0
+    hy = 1.0 - ly
+    hx = 1.0 - lx
+    inside = (py > -1) & (py < h) & (px > -1) & (px < w)
+    # weight, d weight / d py, d weight / d px
+    lerp = ((hy * hx, -hx, -hy), (hy * lx, -lx, hy), (ly * hx, hx, -ly),
+            (ly * lx, lx, ly))
+    out = []
+    for (dy, dx), (weight, d_py, d_px) in zip(CORNERS, lerp):
+        yi, xi = y0 + dy, x0 + dx
+        valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w) & inside
+        idx = yi.clamp(0, h - 1).long() * w + xi.clamp(0, w - 1).long()
+        out.append((idx, valid, weight, d_py, d_px))
+    return out
+
+
+def _gather_rows(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """flat (B, HW, C) rows at idx (B, N) -> (B, N, C)."""
+    return torch.gather(flat, 1, idx[..., None].expand(-1, -1, flat.shape[2]))
+
+
+def dcn_gather_plain(x: torch.Tensor, py: torch.Tensor, px: torch.Tensor
+                     ) -> torch.Tensor:
+    """The gather in plain PyTorch, ``_bilinear_gather``'s arithmetic:
+    each corner's value times (lerp weight x validity), added in
+    :data:`CORNERS` order. The outer cutoff is folded into each corner's
+    validity, where JAX multiplies the sum by it: a sample outside the
+    cutoff is a sum of zeros either way."""
+    b, h, w, c = x.shape
+    flat = x.reshape(b, h * w, c)
+    out = None
+    for idx, valid, weight, _, _ in bilinear_corners(py, px, h, w):
+        term = _gather_rows(flat, idx) * (weight * valid)[..., None]
+        out = term if out is None else out + term
+    return out
+
+
+def dcn_gather_bwd_plain(x: torch.Tensor, py: torch.Tensor,
+                         px: torch.Tensor, g: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dpy, dpx) of :func:`dcn_gather_plain` for the cotangent ``g``
+    (B, N, C), written out with ``index_add_`` (not autograd): with v_c a
+    corner's validity, w_c its lerp weight and x_c its row,
+
+        dx[corner c] += v_c w_c g
+        dpy = sum_c v_c (d w_c / d py) <g, x_c>,  dpx likewise;
+
+    floor and the validity flags pass no gradient."""
+    b, h, w, c = x.shape
+    flat = x.reshape(b, h * w, c)
+    dx = torch.zeros((b * h * w, c), dtype=x.dtype, device=x.device)
+    dpy = torch.zeros_like(py)
+    dpx = torch.zeros_like(px)
+    base = (torch.arange(b, device=x.device) * (h * w))[:, None]
+    for idx, valid, weight, d_py, d_px in bilinear_corners(py, px, h, w):
+        v = valid.to(x.dtype)
+        dx.index_add_(0, (idx + base).reshape(-1),
+                      (g * (weight * v)[..., None]).reshape(-1, c))
+        dot = (g * _gather_rows(flat, idx)).sum(-1)
+        dpy += v * d_py * dot
+        dpx += v * d_px * dot
+    return dx.reshape(b, h, w, c), dpy, dpx
+
+
+def _library() -> ctypes.CDLL:
+    lib = cuda_build.load(KERNEL_SOURCE)
+    for fn, pointers in ((lib.dcn_gather_f32, 4), (lib.dcn_gather_bwd_f32, 7)):
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p] * pointers + [
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_longlong, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(what: str, x: torch.Tensor, py: torch.Tensor, px: torch.Tensor,
+           g: Optional[torch.Tensor] = None) -> None:
+    if x.dim() != 4 or py.dim() != 2 or py.shape != px.shape \
+            or py.shape[0] != x.shape[0]:
+        raise ValueError("{} takes x (B, H, W, C) and py, px (B, N); got {}, "
+                         "{}, {}".format(what, tuple(x.shape), tuple(py.shape),
+                                         tuple(px.shape)))
+    if g is not None and tuple(g.shape) != (*py.shape, x.shape[3]):
+        raise ValueError("{}: g must be (B, N, C) = {}, got {}".format(
+            what, (*py.shape, x.shape[3]), tuple(g.shape)))
+    tensors = (x, py, px) if g is None else (x, py, px, g)
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("{} takes float32, got {}".format(
+            what, [t.dtype for t in tensors]))
+    if any(t.device != x.device for t in tensors) \
+            or x.device.type not in ("cpu", "cuda"):
+        raise ValueError("{} runs on one cuda or cpu device, got {}".format(
+            what, [t.device for t in tensors]))
+    if x.device.type == "cuda" and not all(t.is_contiguous()
+                                           for t in tensors):
+        raise ValueError("{} needs contiguous tensors".format(what))
+
+
+def _launch(entry: str, tensors, x: torch.Tensor, n: int) -> None:
+    """Launch ``entry`` on the current stream of ``x``'s card;
+    ``tensors`` are its pointer arguments, inputs first."""
+    b, h, w, c = x.shape
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        status = getattr(lib, entry)(*(t.data_ptr() for t in tensors),
+                                     b, h, w, c, n, stream)
+    cuda_build.check(lib, status, entry)
+
+
+def dcn_gather(x: torch.Tensor, py: torch.Tensor, px: torch.Tensor
+               ) -> torch.Tensor:
+    """Bilinear samples of x (B, H, W, C) float32 at py, px (B, N) ->
+    (B, N, C), zero outside (module docstring)."""
+    _check("dcn_gather", x, py, px)
+    if x.device.type == "cpu":
+        return dcn_gather_plain(x, py, px)
+    b, n = py.shape
+    out = torch.empty((b, n, x.shape[3]), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    _launch("dcn_gather_f32", (x, py, px, out), x, n)
+    cuda_build.count_launch(KERNEL_NAME)
+    return out
+
+
+def dcn_gather_bwd(x: torch.Tensor, py: torch.Tensor, px: torch.Tensor,
+                   g: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dx, dpy, dpx) of :func:`dcn_gather` for the cotangent ``g``
+    (B, N, C). On the card dx is summed with atomics, in no fixed order."""
+    _check("dcn_gather_bwd", x, py, px, g)
+    if x.device.type == "cpu":
+        return dcn_gather_bwd_plain(x, py, px, g)
+    dx = torch.zeros_like(x)
+    dpy = torch.empty_like(py)
+    dpx = torch.empty_like(px)
+    if g.numel() == 0:
+        return dx, dpy.zero_(), dpx.zero_()
+    _launch("dcn_gather_bwd_f32", (x, py, px, g, dx, dpy, dpx), x,
+            py.shape[1])
+    cuda_build.count_launch(BWD_KERNEL_NAME)
+    return dx, dpy, dpx
+
+
+class DCNGather(torch.autograd.Function):
+    """The gather with its hand-written backward: forward
+    :func:`dcn_gather`, backward :func:`dcn_gather_bwd` (the kernels on
+    the card, their plain versions on the CPU). It saves x, py and px."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, py: torch.Tensor, px: torch.Tensor
+                ) -> torch.Tensor:
+        ctx.save_for_backward(x, py, px)
+        return dcn_gather(x, py, px)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, py, px = ctx.saved_tensors
+        return dcn_gather_bwd(x, py, px, g.contiguous())
+
+
+def sampling_positions(offset: torch.Tensor, kh: int, kw: int, stride: int,
+                       padding: int, dilation: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Float positions (B, Ho, Wo, K) of every tap: the tap's place on the
+    strided, padded, dilated grid (an integer, as the JAX package computes
+    it) plus its (dy, dx) offset (B, Ho, Wo, K, 2)."""
+    _, ho, wo, _, _ = offset.shape
+    device = offset.device
+    oy = torch.arange(ho, device=device) * stride - padding
+    ox = torch.arange(wo, device=device) * stride - padding
+    ky, kx = torch.meshgrid(torch.arange(kh, device=device),
+                            torch.arange(kw, device=device), indexing="ij")
+    ky = ky.reshape(-1) * dilation
+    kx = kx.reshape(-1) * dilation
+    base_y = (oy[:, None, None] + ky[None, None, :]).to(offset.dtype)
+    base_x = (ox[None, :, None] + kx[None, None, :]).to(offset.dtype)
+    return base_y + offset[..., 0], base_x + offset[..., 1]
+
+
+def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                  weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                  stride: int = 1, padding: int = 1, dilation: int = 1
+                  ) -> torch.Tensor:
+    """Modulated deformable convolution (the JAX ``deform_conv2d``, l.159).
+
+    Args:
+      x: (B, Cin, H, W) float32.
+      offset: (B, Ho, Wo, K, 2) per-tap (dy, dx) offsets, K = kh * kw taps
+        in raster order, as the JAX package lays them out.
+      mask: (B, Ho, Wo, K) modulation scalars (already sigmoided).
+      weight: (Cout, Cin, kh, kw); bias: optional (Cout,).
+
+    Returns (B, Cout, Ho, Wo). The samples are ordered N = (Ho, Wo, K),
+    so the gather's (B, N, Cin) is (B, Ho*Wo, K*Cin) as it stands, and
+    the kernel reshaped to (K*Cin, Cout) (tap-major, as JAX reshapes its
+    HWIO kernel) contracts it in one ``torch.matmul``."""
+    b, cin, _, _ = x.shape
+    cout, _, kh, kw = weight.shape
+    _, ho, wo, k, _ = offset.shape
+    py, px = sampling_positions(offset, kh, kw, stride, padding, dilation)
+    x_nhwc = x.permute(0, 2, 3, 1).contiguous()
+    sampled = DCNGather.apply(x_nhwc, py.reshape(b, -1).contiguous(),
+                              px.reshape(b, -1).contiguous())
+    sampled = sampled.reshape(b, ho * wo, k, cin) * mask.reshape(
+        b, ho * wo, k, 1)
+    out = torch.matmul(sampled.reshape(b, ho * wo, k * cin),
+                       weight.permute(2, 3, 1, 0).reshape(k * cin, cout))
+    if bias is not None:
+        out = out + bias
+    return out.reshape(b, ho, wo, cout).permute(0, 3, 1, 2).contiguous()

@@ -2,7 +2,8 @@
 
     python -m scd_resnet_tpu_torch.profile_serve [--requests 5]
 
-For ``cornerCPoolRes10`` and ``centerOffsetRes10`` at full width (seeded
+For ``cornerCPoolRes10``, ``centerOffsetRes10`` and
+``centerOffsetRes10dcn`` at full width (seeded
 weights, ``infer/synthetic.py``) on a seeded 3092x2056 slide (48 clips),
 after two warm-up requests, it prints one JSON line per model with:
 
@@ -41,7 +42,9 @@ from scd_resnet_tpu_torch.infer.wrapper import make_wrapper
 from scd_resnet_tpu_torch.train.registry import get_model_profile
 
 SLIDE_W, SLIDE_H = 3092, 2056
-ARCHS = {"cornerCPoolRes10": 10, "centerOffsetRes10": 11}  # arch -> seed
+# arch -> seed
+ARCHS = {"cornerCPoolRes10": 10, "centerOffsetRes10": 11,
+         "centerOffsetRes10dcn": 12}
 
 
 def device_ms(fn: Callable[[], object], n: int, warmup: int = 0) -> float:

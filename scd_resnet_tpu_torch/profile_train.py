@@ -5,7 +5,8 @@
 
 Trains the configuration's model under its settings (``configs/exp74.json``,
 ``centerOffsetRes10``, by default; ``configs/cpool_best.json`` trains
-``cornerCPoolRes10``; both 512x512 clips, batch 32, bf16 autocast, Adam)
+``cornerCPoolRes10`` and ``configs/dcn_full.json``
+``centerOffsetRes10dcn``; all 512x512 clips, batch 32, bf16 autocast, Adam)
 on the seeded synthetic stand-in for the ``scdx16p100`` archive
 (``SYNTHETIC_ARCHIVE``, 256 clips; written to ``build/profile_train/``
 unless ``--archive`` names a copy, such as the one ``chip_smoke.py``
@@ -24,7 +25,9 @@ JSON line:
 - ``kernels``: device time per step by kernel name (``torch.profiler``
   over ``--steps`` steps), the largest first, ``device_busy_share``
   (summed kernel time over the profiled wall time), the port's own
-  kernels' lines (``port_kernels``) and the lines of PyTorch's max-pool
+  kernels' lines (``port_kernels``: the render, the corner pools, the
+  stem pool's backward, the deformable gather and its backward) and the
+  lines of PyTorch's max-pool
   backward or ``cummax`` (``library_pool_kernels``, which the port's
   kernels replace: empty when the step runs through them);
 - ``peak_memory_gb``: ``torch.cuda.max_memory_allocated`` over the run.
@@ -59,7 +62,8 @@ from scd_resnet_tpu_torch.train.factory import NetworkFactory
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXP74 = os.path.join(REPO, "configs", "exp74.json")
 CPOOL_BEST = os.path.join(REPO, "configs", "cpool_best.json")
-# the synthetic stand-in for the scdx16p100 archive of both configurations
+DCN_FULL = os.path.join(REPO, "configs", "dcn_full.json")
+# the synthetic stand-in for the scdx16p100 archive of the configurations
 # (``make_archive``'s arguments): 2 x 128 clips of 512^2, half of them
 # validation
 SYNTHETIC_ARCHIVE = {"num_images": 2, "reps": 1, "clips_per_image": 128,
@@ -68,7 +72,8 @@ RENDER_KERNEL = "render_heatmap_kernel"
 # the port's __global__ kernels, and PyTorch's that they replace
 PORT_KERNELS = ("render_heatmap_kernel", "pool_h_kernel", "pool_w_kernel",
                 "pool_bwd_h_kernel", "pool_bwd_w_kernel",
-                "max_pool_bwd_kernel")
+                "max_pool_bwd_kernel", "dcn_gather_kernel",
+                "dcn_gather_bwd_kernel")
 LIBRARY_POOL_KERNELS = ("max_pool_backward", "cummax")
 WARMUP_STEPS = 10
 

@@ -7,6 +7,8 @@ registry's (reference trainer/model/*.py):
 - ``centerOffsetRes{10,18,34,50}``: full width, terminal hidden 128;
 - ``centerOffsetRes{10,18,34,50,101}h``: half width, hidden 64;
 - ``centerOffsetRes10q``: quarter width, hidden 64;
+- ``centerOffsetRes10dcn``: full width, hidden 128, with the deformable
+  prologue before the first deconv (``models/deformable.DCN``);
 - ``cornerRes{10,18}``, ``cornerCPoolRes{10,18}``,
   ``cornerCombinedRes{10,18}``: full width, family ``corner``, trained on
   corner targets; the combined model's loss and decode split its one
@@ -94,12 +96,13 @@ HALF = (32, 32, 64, 128, 256, 128, 128, 128)
 QUARTER = (16, 16, 32, 64, 128, 64, 64, 64)
 
 
-def _center_offset(name: str, num_layers: int, dims, hidden: int) -> None:
+def _center_offset(name: str, num_layers: int, dims, hidden: int,
+                   **extra) -> None:
     register_model(ModelProfile(
         name=name,
         model_cls=cno.CenterNetResidual,
         model_params={"num_layers": num_layers, "dims": tuple(dims),
-                      "terminal_hidden": hidden},
+                      "terminal_hidden": hidden, **extra},
         loss=cno.CenterNetLoss(0.1, 0.1),
         decode=cno.decode_center_net,
         evaluation=cno.center_net_evaluation,
@@ -112,7 +115,7 @@ for _depth in (10, 18, 34, 50):
 for _depth in (10, 18, 34, 50, 101):
     _center_offset(f"centerOffsetRes{_depth}h", _depth, HALF, 64)
 _center_offset("centerOffsetRes10q", 10, QUARTER, 64)
-
+_center_offset("centerOffsetRes10dcn", 10, FULL, 128, dcn=True)
 
 
 def _corner(name: str, model_cls, num_layers: int,

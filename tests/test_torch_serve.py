@@ -145,7 +145,10 @@ SERVE_BLOCKED = BLOCK + textwrap.dedent("""
 """) + LEAK_CHECK + 'print("served", len(detections))\n'
 
 # python -m scd_resnet_tpu_torch.train <tiny config> --device cpu, for a
-# centerOffset and a corner-pool model (quarter width, registered here)
+# centerOffset, a corner-pool and a DCN model (quarter width, registered
+# here)
+TRAIN_ARCHS = ("centerOffsetRes10q", "cornerCPoolRes10q",
+               "centerOffsetRes10dcnq")
 TRAIN_BLOCKED = BLOCK + textwrap.dedent("""
     import dataclasses, json, os, runpy
     from scd_resnet_tpu_torch.data.synthetic import make_archive
@@ -155,10 +158,15 @@ TRAIN_BLOCKED = BLOCK + textwrap.dedent("""
         registry.get_model_profile("cornerCPoolRes10"),
         name="cornerCPoolRes10q",
         model_params={"num_layers": 10, "dims": registry.QUARTER})
+    registry.MODEL_PROFILES["centerOffsetRes10dcnq"] = dataclasses.replace(
+        registry.get_model_profile("centerOffsetRes10dcn"),
+        name="centerOffsetRes10dcnq",
+        model_params={"num_layers": 10, "dims": registry.QUARTER,
+                      "terminal_hidden": 64, "dcn": True})
     root = sys.argv[1]
     make_archive(os.path.join(root, "scdx16p100.d"), num_images=2, reps=1,
                  clips_per_image=8, size=64)
-    for arch in ("centerOffsetRes10q", "cornerCPoolRes10q"):
+    for arch in sys.argv[2:]:
         config = os.path.join(root, arch + ".json")
         with open(config, "w") as f:
             json.dump({"datasetName": "scdx16p100", "modelName": arch,
@@ -187,7 +195,7 @@ def test_port_imports_no_jax():
 
 
 def test_train_entry_point_imports_no_jax(tmp_path):
-    out = _run_blocked(TRAIN_BLOCKED, str(tmp_path))
+    out = _run_blocked(TRAIN_BLOCKED, str(tmp_path), *TRAIN_ARCHS)
     assert out.rstrip().endswith("trained")
-    for arch in ("centerOffsetRes10q", "cornerCPoolRes10q"):
+    for arch in TRAIN_ARCHS:
         assert (tmp_path / "results" / "losses.{}.2.txt".format(arch)).exists()
