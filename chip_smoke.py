@@ -30,10 +30,13 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
 4. holds the stem max-pool backward kernel (``csrc/max_pool_bwd.cu``)
    against its plain version at the stem's training shape (32, 64, 256,
    256), bfloat16 and float32, on random and ReLU'd tie-heavy inputs,
-   then at odd and tiny shapes: equal zero patterns, float32 within 1e-6
-   relative, bfloat16 within one bf16 ulp (both add in one order, so
-   they are expected equal). It times the kernel, the plain version and,
-   as a yardstick the port never calls, PyTorch's
+   then at odd and tiny shapes, shapes that cross the kernel's bands of
+   output rows and its column tiles (read from the built library), and
+   B C above 65,535, with -inf and NaN in x and NaN in dy: equal to the
+   bit, NaN where the plain version has NaN (both add each pixel's
+   windows in one order). It times the kernel (its C entry point
+   launched back to back, and its wrapper), the plain version and, as a
+   yardstick the port never calls, PyTorch's
    ``max_pool2d_with_indices_backward`` fed by its forward's indices;
 5. holds the deformable gather (``csrc/dcn_gather.cu``, forward and
    backward) against its plain versions at the DCN's shapes, x (B, 16,
@@ -42,14 +45,18 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
    positions that mix fractional samples inside the map, integers,
    samples in (-1, 0) and (size - 1, size), exactly -1 and size, and far
    out of range; then at ragged shapes (C = 5, 33; H != W; N not a
-   multiple of the block's 8 samples; NaN in x). The forward must equal
-   its plain version to the bit (both evaluate the lerp weights and add
-   the four corners in one order, with no fused multiply-add). The
-   backward's dx is summed with atomics in no fixed order, so dx, dpy
-   and dpx are held to the float32 summation bound 2 (m - 1) 2^-24
-   sum|terms| of each element's m terms (dpy, dpx: m = C + 8, for the
-   products by the weights' derivatives), and with a cotangent in [0.5,
-   1.5) dx's zero pattern must be equal. It times the kernels (launched
+   multiple of the block's 8 samples; NaN in x; C = 100, not a multiple
+   of the backward's 32-channel slices; a 120 x 120 map the backward
+   cuts into bands of rows and a 3 x 500 one it cuts into tiles of
+   columns). The forward must equal its plain version to the bit (both
+   evaluate the lerp weights and add the four corners in one order, with
+   no fused multiply-add). The backward sums in another order (dx with
+   its buckets' samples added in no fixed order), so dx, dpy and dpx are
+   held to the float32 summation bound 2 (m - 1) 2^-24 sum|terms| of
+   each element's m terms (dpy, dpx: m = C + 8, for the products by the
+   weights' derivatives), with a cotangent in [0.5, 1.5) dx's zero
+   pattern must be equal, and two runs must give dpy and dpx equal to
+   the bit. It times the kernels (launched
    back to back through their C entry points), their wrappers, their
    plain versions and, as a yardstick the port never calls,
    ``F.grid_sample(bilinear, zeros, align_corners=True)`` on the same
@@ -134,6 +141,7 @@ false. Everything it writes goes under ``build/`` in the checkout.
 from __future__ import annotations
 
 import copy
+import ctypes
 import io
 import json
 import math
@@ -196,15 +204,21 @@ REQUESTS = 4  # per model: three raw bodies, one PNG
 DIRECTIONS = {"top": (2, True), "bottom": (2, False),
               "left": (3, True), "right": (3, False)}
 EDGE_SHAPES = ((2, 3, 37, 45), (1, 2, 1, 33), (1, 2, 70, 1))
-STEM_EDGE_SHAPES = ((2, 3, 37, 45), (1, 2, 1, 1), (1, 2, 6, 7), (1, 1, 2, 3))
+# odd and tiny shapes, and B C above 65,535
+STEM_EDGE_SHAPES = ((2, 3, 37, 45), (1, 2, 1, 1), (1, 2, 6, 7), (1, 1, 2, 3),
+                    (2, 35000, 3, 5))
 KERNEL_SOURCES = ("corner_pool.cu", "render_heatmap.cu", "max_pool_bwd.cu",
                   "dcn_gather.cu")
 # the DCN's input at the S/32 map, (H, W, C), and its 3x3 taps
 DCN_MAP, DCN_TAPS = (16, 16, 512), 9
 DCN_BATCHES = {"served": 48, "train": 32, "validation": 64}
-# (B, H, W, C, N): ragged channels, H != W, N not a multiple of 8, 1x1
+# (B, H, W, C, N): ragged channels, H != W, N not a multiple of 8, 1x1;
+# C = 100 in three 32-channel slices and a 4-channel one; maps the
+# backward cuts into bands of rows (120 x 120) and into tiles of columns
+# (3 x 500)
 DCN_EDGE_SHAPES = ((2, 7, 9, 5, 103), (3, 5, 11, 33, 77), (1, 1, 1, 1, 9),
-                   (2, 16, 16, 512, 13))
+                   (2, 16, 16, 512, 13), (2, 9, 13, 100, 300),
+                   (1, 120, 120, 64, 5000), (1, 3, 500, 64, 700))
 
 CLIP, HEAT, BATCH = 512, 128, 32  # exp74: clip side, heatmap side, batch
 # relative move of the clips (about one float32 ulp of their values) in
@@ -226,6 +240,12 @@ def run(cmd) -> str:
 
 
 # -- 2. the kernel against its plain version --------------------------------
+
+def equal_nan_aware(got, ref) -> bool:
+    """Equal, NaN where the other has NaN."""
+    return torch.equal(got.isnan(), ref.isnan()) and \
+        torch.equal(got.nan_to_num(), ref.nan_to_num())
+
 
 def time_ms(fn) -> float:
     """Mean device time of ``fn()`` over 20 calls after 2 warm-up calls.
@@ -277,10 +297,8 @@ def check_corner_pool():
         x = torch.randn(shape, device="cuda", generator=gen)
         x[x > 2.0] = float("nan")
         for direction, (dim, reverse) in DIRECTIONS.items():
-            got = cp.corner_pool(x, dim, reverse)
-            ref = cp.corner_pool_plain(x, dim, reverse)
-            if not (torch.equal(got.isnan(), ref.isnan())
-                    and torch.equal(got.nan_to_num(), ref.nan_to_num())):
+            if not equal_nan_aware(cp.corner_pool(x, dim, reverse),
+                                   cp.corner_pool_plain(x, dim, reverse)):
                 raise AssertionError("corner_pool {} at {} differs from its "
                                      "plain version".format(direction, shape))
     torch.cuda.synchronize()
@@ -404,28 +422,41 @@ def check_corner_pool_bwd():
 
 # -- 4. the stem max-pool backward against its plain version -----------------------
 
-def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
-    """One bfloat16 ulp at each value (0 at 0): 8 significant bits."""
-    _, exponent = torch.frexp(v.float())
-    return torch.where(v == 0, torch.zeros_like(v.float()),
-                       torch.ldexp(torch.ones_like(v.float()),
-                                   exponent - 8))
-
-
-def compare_stem_bwd(x, dy, what) -> float:
+def compare_stem_bwd(x, dy, what) -> None:
     got = mp.max_pool_3x3_s2_bwd(x, dy)
     torch.cuda.synchronize()
-    ref = mp.max_pool_3x3_s2_bwd_plain(x, dy)
-    if not torch.equal(got == 0, ref == 0):
-        raise AssertionError("max_pool_3x3_s2_bwd {}: the zero patterns "
-                             "differ".format(what))
-    err = (got.float() - ref.float()).abs()
-    tol = bf16_ulp(ref) if x.dtype == torch.bfloat16 else \
-        1e-6 * ref.float().abs()
-    if bool((err > tol).any()):
-        raise AssertionError("max_pool_3x3_s2_bwd {}: max abs {}".format(
-            what, err.max().item()))
-    return err.max().item()
+    if not equal_nan_aware(got, mp.max_pool_3x3_s2_bwd_plain(x, dy)):
+        raise AssertionError("max_pool_3x3_s2_bwd {} differs from its plain "
+                             "version".format(what))
+
+
+def stem_edge_shapes():
+    """``STEM_EDGE_SHAPES`` and shapes that cross the kernel's bands of
+    output rows and its column tiles, from the sizes its library reports
+    (rows 8 and 128 columns: (1, 2, 67, 300) in scalar bf16 and
+    vectorised float32, (1, 2, 35, 304) vectorised in both, (1, 1, 17,
+    9))."""
+    lib = cuda_build.load(mp.KERNEL_SOURCE)
+    rows = lib.max_pool_3x3_s2_bwd_band_rows()
+    cols = lib.max_pool_3x3_s2_bwd_tile_cols()
+    return STEM_EDGE_SHAPES + ((1, 2, 8 * rows + 3, 2 * cols + 44),
+                               (1, 2, 4 * rows + 3, 2 * cols + 48),
+                               (1, 1, 2 * rows + 1, 9))
+
+
+def stem_direct_launch(x, dy, dx):
+    """A back-to-back launch of the kernel's bf16 entry point (a Python
+    wrapper call takes a good part of the kernel's time to issue)."""
+    lib = mp._library(mp.ENTRY[torch.bfloat16])
+    fn = lib.max_pool_3x3_s2_bwd_bf16
+    fn.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (x.data_ptr(), dy.data_ptr(), dx.data_ptr(), *x.shape, stream)
+    cuda_build.check(lib, fn(*args), "max_pool_3x3_s2_bwd_bf16")
+    return lambda: fn(*args)
 
 
 def check_max_pool_bwd():
@@ -434,7 +465,6 @@ def check_max_pool_bwd():
     gen = torch.Generator(device="cuda").manual_seed(4)
     b, c, h, w = STEM_SHAPE
     out_shape = (b, c, mp.output_size(h), mp.output_size(w))
-    errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         dy = torch.randn(out_shape, device="cuda", generator=gen).to(dtype)
         for kind in ("random", "ties"):
@@ -443,18 +473,22 @@ def check_max_pool_bwd():
             else:  # ReLU'd small integers: ties and zeros everywhere
                 x = torch.randint(-2, 3, STEM_SHAPE, device="cuda",
                                   generator=gen).float().clamp_min_(0)
-            x = x.to(dtype)
-            errs[(dtype, kind)] = compare_stem_bwd(x, dy, "{} {}".format(
-                dtype, kind))
+            compare_stem_bwd(x.to(dtype), dy, "{} {}".format(dtype, kind))
             del x
         del dy
         torch.cuda.empty_cache()
-    for shape in STEM_EDGE_SHAPES:
+    shapes = stem_edge_shapes()
+    for shape in shapes:
         x = torch.randint(-2, 3, shape, device="cuda",
                           generator=gen).float().clamp_min_(0)
+        u = torch.rand(shape, device="cuda", generator=gen)
+        x[u > 0.97] = float("-inf")
+        x[u < 0.02] = float("nan")
+        x[0, 0] = float("-inf")  # a plane whose every maximum is -inf
         dy = torch.randn((*shape[:2], mp.output_size(shape[2]),
                           mp.output_size(shape[3])), device="cuda",
                          generator=gen)
+        dy.view(-1)[::97] = float("nan")
         for dtype in (torch.bfloat16, torch.float32):
             compare_stem_bwd(x.to(dtype), dy.to(dtype), "at {}".format(shape))
 
@@ -465,56 +499,58 @@ def check_max_pool_bwd():
     indices = torch.ops.aten.max_pool2d_with_indices(x, [3, 3], [2, 2],
                                                      [1, 1])[1]
     n_bytes = (2 * x.numel() + dy.numel()) * x.element_size()
+    dx = torch.empty_like(x)
+    launch = stem_direct_launch(x, dy, dx)
     result = {
-        "max_abs_err": max(errs.values()),
-        "max_abs_err_by_type": {"{} {}".format(str(d).split(".")[-1], k): e
-                                for (d, k), e in errs.items()},
-        "ms": time_ms(lambda: mp.max_pool_3x3_s2_bwd(x, dy)),
+        "max_abs_err": 0.0,
+        "ms": time_ms(launch),
+        "wrapper_ms": time_ms(lambda: mp.max_pool_3x3_s2_bwd(x, dy)),
         "plain_ms": time_ms(lambda: mp.max_pool_3x3_s2_bwd_plain(x, dy)),
         "library_ms": time_ms(
             lambda: torch.ops.aten.max_pool2d_with_indices_backward(
                 dy, x, [3, 3], [2, 2], [1, 1], [1, 1], False, indices)),
         "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
     }
-    log("max_pool_3x3_s2_bwd at {} bf16 and float32 and at edge shapes {}: "
-        "zero patterns equal, max abs {}; bf16 kernel {:.4f} ms, plain "
-        "{:.4f} ms, max_pool2d_with_indices_backward {:.4f} ms, bound "
-        "{:.4f} ms".format(STEM_SHAPE, list(STEM_EDGE_SHAPES),
-                           result["max_abs_err_by_type"], result["ms"],
-                           result["plain_ms"], result["library_ms"],
-                           result["bound_ms"]))
-    del x, dy, indices
+    log("max_pool_3x3_s2_bwd at {} bf16 and float32, on random and tie "
+        "inputs, and at edge shapes {} with -inf and NaN: equal to its plain "
+        "version; bf16 kernel {:.4f} ms (wrapper {:.4f} ms), plain {:.4f} "
+        "ms, max_pool2d_with_indices_backward {:.4f} ms, bound {:.4f} "
+        "ms".format(STEM_SHAPE, list(shapes), result["ms"],
+                    result["wrapper_ms"],
+                    result["plain_ms"], result["library_ms"],
+                    result["bound_ms"]))
+    del x, dy, dx, indices
     torch.cuda.empty_cache()
     return result
 
 
 def max_pool_bwd_entry(result):
-    return {
+    entry = {
         "name": mp.KERNEL_NAME, "route": "cuda",
         "source": "scd_resnet_tpu_torch/csrc/max_pool_bwd.cu",
         "replaces": "tools/pool_bwd_pallas_probe.py:120",
-        "max_abs_err": result["max_abs_err"],
-        "ms": result["ms"], "plain_ms": result["plain_ms"],
-        "bound_ms": result["bound_ms"], "bound_by": result["bound_by"],
-        "library_ms": result["library_ms"],
         "library_call": "torch.ops.aten.max_pool2d_with_indices_backward "
                         "(bf16, indices from its forward)",
         "shape": list(STEM_SHAPE), "dtype": "bfloat16",
-        "max_abs_err_by_type": result["max_abs_err_by_type"],
     }
+    entry.update(result)
+    return entry
 
 
 # -- 5. the deformable gather against its plain versions ----------------------------
 
 def dcn_positions(b: int, h: int, w: int, n: int, gen) -> tuple:
     """Seeded sampling positions (B, N) on the card: the 3x3 grid of a
-    padded conv over an h x w map moved by N(0, 1.5^2) offsets, with a
-    share of the samples rewritten as integers, values in (-1, 0) and
-    (size - 1, size), exactly -1 and size, and far out of range."""
+    padded conv over an h x w map (every step-th sample where N is
+    fewer, so that they spread over the map) moved by N(0, 1.5^2)
+    offsets, with a share of the samples rewritten as integers, values
+    in (-1, 0) and (size - 1, size), exactly -1 and size, and far out of
+    range."""
     taps = torch.zeros((b, h, w, DCN_TAPS, 2), device="cuda")
     py, px = dcn.sampling_positions(taps, 3, 3, 1, 1, 1)
-    py = py.reshape(b, -1)[:, :n].contiguous()
-    px = px.reshape(b, -1)[:, :n].contiguous()
+    step = max(1, h * w * DCN_TAPS // n)
+    py = py.reshape(b, -1)[:, ::step][:, :n].contiguous()
+    px = px.reshape(b, -1)[:, ::step][:, :n].contiguous()
     if py.shape[1] < n:  # a map smaller than N samples: tile it
         reps = -(-n // py.shape[1])
         py, px = (t.repeat(1, reps)[:, :n].contiguous() for t in (py, px))
@@ -579,8 +615,14 @@ def dcn_bwd_bounds(x, py, px, g):
 
 
 def compare_dcn_bwd(x, py, px, g, what, zero_pattern=True) -> float:
+    """The backward against its plain version within the summation
+    bounds; a second run must give dpy and dpx equal to the bit."""
     got = dcn.dcn_gather_bwd(x, py, px, g)
+    again = dcn.dcn_gather_bwd(x, py, px, g)
     torch.cuda.synchronize()
+    if not (torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])):
+        raise AssertionError("dcn_gather_bwd {}: two runs give other dpy or "
+                             "dpx".format(what))
     ref = dcn.dcn_gather_bwd_plain(x, py, px, g)
     if zero_pattern and not torch.equal(got[0] == 0, ref[0] == 0):
         raise AssertionError("dcn_gather_bwd {}: the zero patterns of dx "
@@ -599,26 +641,27 @@ def compare_dcn_bwd(x, py, px, g, what, zero_pattern=True) -> float:
 
 def dcn_direct_launches(x, py, px, g):
     """Back-to-back launches of the two C entry points (a Python wrapper
-    call takes about as long to issue as the kernel takes to run); the
-    backward's includes zeroing dx, as its wrapper does."""
+    call takes about as long to issue as the kernel takes to run), with
+    the backward's plan and scratch as its wrapper makes them."""
     b, h, w, c = x.shape
     n = py.shape[1]
     lib = dcn._library()
     stream = torch.cuda.current_stream().cuda_stream
     out = torch.empty((b, n, c), device="cuda")
-    dx = torch.zeros_like(x)
+    dx = torch.empty_like(x)
     dpy, dpx = torch.empty_like(py), torch.empty_like(px)
+    plan = dcn.bwd_plan(h, w, c)
+    index, parts = dcn.bwd_scratch(b, h, w, c, n, plan, x.device)
 
     def forward():
         return lib.dcn_gather_f32(x.data_ptr(), py.data_ptr(), px.data_ptr(),
                                   out.data_ptr(), b, h, w, c, n, stream)
 
     def backward():
-        dx.zero_()
         return lib.dcn_gather_bwd_f32(
             x.data_ptr(), py.data_ptr(), px.data_ptr(), g.data_ptr(),
-            dx.data_ptr(), dpy.data_ptr(), dpx.data_ptr(), b, h, w, c, n,
-            stream)
+            dx.data_ptr(), dpy.data_ptr(), dpx.data_ptr(), index.data_ptr(),
+            parts.data_ptr(), b, h, w, c, n, *plan, stream)
 
     for fn, name in ((forward, "dcn_gather_f32"),
                      (backward, "dcn_gather_bwd_f32")):
@@ -703,9 +746,10 @@ def check_dcn_gather():
                               align_corners=True).backward(g_nchw)
 
             n_bytes = (g.numel() + 2 * x.numel() + 4 * py.numel()) * 4
-            n_ops = g.numel() * 4 * 4  # per corner: dot, product, add, atomic
+            n_ops = g.numel() * 4 * 4  # per corner: dot, product, add, dx sum
             bwd = {
                 "shape": [b, h, w, c, n], "max_abs_err": err,
+                "plan": dcn.bwd_plan(h, w, c)._asdict(),
                 "ms": device_ms(backward, 50, warmup=5),
                 "wrapper_ms": time_ms(lambda: dcn.dcn_gather_bwd(
                     x, py, px, g_signed)),
@@ -726,14 +770,14 @@ def check_dcn_gather():
             x.requires_grad_(False)
             py.requires_grad_(False)
             px.requires_grad_(False)
-            log("dcn_gather_bwd at {}: dx zero pattern equal, within the "
-                "summation bounds, max abs {:.3g}; kernel {:.4f} ms "
-                "(wrapper {:.4f} ms), plain {:.4f} ms, "
-                "grid_sampler_2d_backward {:.4f} ms, bound {:.4f} ms ({}); "
-                "forward + backward: kernels {:.4f} ms, grid_sample "
-                "{:.4f} ms".format(
-                    tuple(bwd["shape"]), err, bwd["ms"], bwd["wrapper_ms"],
-                    bwd["plain_ms"], bwd["library_ms"], bwd["bound_ms"],
+            log("dcn_gather_bwd at {} (plan {}): dx zero pattern equal, "
+                "within the summation bounds, dpy and dpx equal to the bit "
+                "over two runs, max abs {:.3g}; kernel {:.4f} ms (wrapper "
+                "{:.4f} ms), plain {:.4f} ms, grid_sampler_2d_backward "
+                "{:.4f} ms, bound {:.4f} ms ({}); forward + backward: "
+                "kernels {:.4f} ms, grid_sample {:.4f} ms".format(
+                    tuple(bwd["shape"]), bwd["plan"], err, bwd["ms"],
+                    bwd["wrapper_ms"], bwd["plain_ms"], bwd["library_ms"], bwd["bound_ms"],
                     bwd["bound_by"], bwd["fwd_bwd_ms"],
                     bwd["library_fwd_bwd_ms"]))
             del g, g_signed, g_nchw, x_grad, grid_grad
@@ -751,17 +795,18 @@ def check_dcn_gather():
         compare_dcn_bwd(x, py, px, g, "at {}".format((b, eh, ew, ec, en)))
         x[torch.rand(x.shape, device="cuda", generator=gen) > 0.9] = \
             float("nan")
-        got = dcn.dcn_gather(x, py, px)
-        ref = dcn.dcn_gather_plain(x, py, px)
-        if not (torch.equal(got.isnan(), ref.isnan())
-                and torch.equal(got.nan_to_num(), ref.nan_to_num())):
+        if not equal_nan_aware(dcn.dcn_gather(x, py, px),
+                               dcn.dcn_gather_plain(x, py, px)):
             raise AssertionError("dcn_gather at {} with NaN inputs differs "
                                  "from its plain version".format(
                                      (b, eh, ew, ec, en)))
     torch.cuda.synchronize()
     log("dcn_gather and dcn_gather_bwd agree with their plain versions at "
-        "edge shapes {} (the forward with NaN inputs too); position kinds "
-        "at the served shape {}".format(list(DCN_EDGE_SHAPES), kinds))
+        "edge shapes {} (backward plans {}; the forward with NaN inputs "
+        "too); position kinds at the served shape {}".format(
+            list(DCN_EDGE_SHAPES),
+            [tuple(dcn.bwd_plan(*shape[1:4])) for shape in DCN_EDGE_SHAPES],
+            kinds))
     return fwd, bwd, kinds
 
 
@@ -789,7 +834,7 @@ def dcn_entries(fwd, bwd, kinds):
          "library_call": "torch.ops.aten.grid_sampler_2d_backward",
          "fwd_bwd_ms": bwd["fwd_bwd_ms"],
          "library_fwd_bwd_ms": bwd["library_fwd_bwd_ms"],
-         "shape": bwd["shape"]},
+         "shape": bwd["shape"], "plan": bwd["plan"]},
     ]
 
 

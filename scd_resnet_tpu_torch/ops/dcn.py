@@ -12,7 +12,7 @@ the four bilinear corners is zeroed when it lies outside the map, and a
 whole sample is zeroed when it leaves the outer cutoff
 (-1, H) x (-1, W) (the reference's ``dmcn_im2col_bilinear``).
 
-Two CUDA kernels in ``csrc/dcn_gather.cu`` port the TPU kernel
+The CUDA kernels in ``csrc/dcn_gather.cu`` port the TPU kernel
 ``dcn_gather_pallas`` (``scd_resnet_tpu/ops/pallas_kernels.py:190``):
 :func:`dcn_gather` wraps the forward, :func:`dcn_gather_bwd` the backward,
 which returns dx, dpy and dpx (in the JAX package that backward is XLA's
@@ -29,7 +29,7 @@ PSROI pooling is not ported yet.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -40,6 +40,11 @@ KERNEL_NAME = "dcn_gather"
 BWD_KERNEL_NAME = "dcn_gather_bwd"
 for _name in (KERNEL_NAME, BWD_KERNEL_NAME):
     cuda_build.LAUNCHES.setdefault(_name, 0)
+
+# shared memory one block may use on an H100, and the most channels one
+# backward block takes (one a lane, ``kSlice`` in csrc/dcn_gather.cu)
+SHARED_BYTES = 232448
+MAX_SLICE = 32
 
 # (corner row, corner column) offsets from (floor(py), floor(px)), in the
 # order the forward adds the corners
@@ -121,12 +126,16 @@ def dcn_gather_bwd_plain(x: torch.Tensor, py: torch.Tensor,
 
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load(KERNEL_SOURCE)
-    for fn, pointers in ((lib.dcn_gather_f32, 4), (lib.dcn_gather_bwd_f32, 7)):
-        if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p] * pointers + [
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_longlong, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+    fn = lib.dcn_gather_f32
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+            ctypes.c_longlong, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    fn = lib.dcn_gather_bwd_f32
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+            ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -153,16 +162,76 @@ def _check(what: str, x: torch.Tensor, py: torch.Tensor, px: torch.Tensor,
         raise ValueError("{} needs contiguous tensors".format(what))
 
 
-def _launch(entry: str, tensors, x: torch.Tensor, n: int) -> None:
+def _launch(entry: str, tensors, x: torch.Tensor, n: int, *plan) -> None:
     """Launch ``entry`` on the current stream of ``x``'s card;
-    ``tensors`` are its pointer arguments, inputs first."""
+    ``tensors`` are its pointer arguments, inputs first, ``plan`` its
+    integer arguments after N."""
     b, h, w, c = x.shape
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         status = getattr(lib, entry)(*(t.data_ptr() for t in tensors),
-                                     b, h, w, c, n, stream)
+                                     b, h, w, c, n, *plan, stream)
     cuda_build.check(lib, status, entry)
+
+
+class BwdPlan(NamedTuple):
+    """How the backward kernel cuts a (H, W, C) map: one block per image,
+    slice of ``cs`` channels and tile of ``rows`` x ``cols`` pixels. The
+    block sums w_c g over the samples of each of the tile's (rows + 1) x
+    (cols + 1) buckets (a sample's bucket is its top-left corner (floor(py),
+    floor(px)), which may lie one row or column before the tile) for each
+    corner c in shared memory: float32, MAX_SLICE channels each."""
+    cs: int
+    rows: int
+    cols: int
+
+    def shared_bytes(self) -> int:
+        return 4 * 4 * MAX_SLICE * (self.rows + 1) * (self.cols + 1)
+
+    def parts(self, h: int, w: int, c: int) -> int:
+        """Partial sums of dpy (and of dpx) per sample: one per slice and
+        per tile its corners reach, slices x slots. The corners' two rows
+        lie in one or two row tiles, so the slots are 2 where the plan
+        cuts H into tiles, else 1, times the same for W."""
+        slots = (2 if self.rows < h else 1) * (2 if self.cols < w else 1)
+        return (-(-c // self.cs)) * slots
+
+
+def bwd_plan(h: int, w: int, c: int) -> BwdPlan:
+    """At most 32 channels a block (fewer only when C is), and as many
+    whole rows of the map as fit :data:`SHARED_BYTES` (the whole 16 x 16
+    DCN map: 289 buckets, 148 KB); a row too long for that is cut into
+    tiles of columns."""
+    cs = min(c, MAX_SLICE)
+
+    def fits(rows: int, cols: int) -> bool:
+        return BwdPlan(cs, rows, cols).shared_bytes() <= SHARED_BYTES
+
+    if fits(h, w):
+        return BwdPlan(cs, h, w)
+    if fits(1, w):
+        rows = 1
+        while fits(rows + 1, w):
+            rows += 1
+        return BwdPlan(cs, rows, w)
+    cols = 1
+    while fits(1, cols + 1):
+        cols += 1
+    return BwdPlan(cs, 1, cols)
+
+
+def bwd_scratch(b: int, h: int, w: int, c: int, n: int, plan: BwdPlan,
+                device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel's scratch: int32, each image's samples sorted
+    by bucket, then its buckets' starts; float32 (2, B, parts, N), the
+    blocks' partial sums of dpy and dpx per sample (:meth:`BwdPlan.parts`:
+    16 at the DCN's map, at most 4 per slice on any map)."""
+    index = torch.empty(b * (n + (h + 1) * (w + 1) + 1), dtype=torch.int32,
+                        device=device)
+    parts = torch.empty((2, b, plan.parts(h, w, c), n), dtype=torch.float32,
+                        device=device)
+    return index, parts
 
 
 def dcn_gather(x: torch.Tensor, py: torch.Tensor, px: torch.Tensor
@@ -185,17 +254,22 @@ def dcn_gather_bwd(x: torch.Tensor, py: torch.Tensor, px: torch.Tensor,
                    g: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dx, dpy, dpx) of :func:`dcn_gather` for the cotangent ``g``
-    (B, N, C). On the card dx is summed with atomics, in no fixed order."""
+    (B, N, C). On the card dx adds each bucket's samples in no fixed
+    order; dpy and dpx are the same from run to run."""
     _check("dcn_gather_bwd", x, py, px, g)
     if x.device.type == "cpu":
         return dcn_gather_bwd_plain(x, py, px, g)
-    dx = torch.zeros_like(x)
+    b, n = py.shape
+    _, h, w, c = x.shape
+    dx = torch.empty_like(x)
     dpy = torch.empty_like(py)
     dpx = torch.empty_like(px)
     if g.numel() == 0:
-        return dx, dpy.zero_(), dpx.zero_()
-    _launch("dcn_gather_bwd_f32", (x, py, px, g, dx, dpy, dpx), x,
-            py.shape[1])
+        return dx.zero_(), dpy.zero_(), dpx.zero_()
+    plan = bwd_plan(h, w, c)
+    index, parts = bwd_scratch(b, h, w, c, n, plan, x.device)
+    _launch("dcn_gather_bwd_f32", (x, py, px, g, dx, dpy, dpx, index, parts),
+            x, n, *plan)
     cuda_build.count_launch(BWD_KERNEL_NAME)
     return dx, dpy, dpx
 

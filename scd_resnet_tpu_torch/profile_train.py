@@ -73,7 +73,8 @@ RENDER_KERNEL = "render_heatmap_kernel"
 PORT_KERNELS = ("render_heatmap_kernel", "pool_h_kernel", "pool_w_kernel",
                 "pool_bwd_h_kernel", "pool_bwd_w_kernel",
                 "max_pool_bwd_kernel", "dcn_gather_kernel",
-                "dcn_gather_bwd_kernel")
+                "dcn_gather_bwd_kernel", "dcn_bucket_sort_kernel",
+                "dcn_parts_sum_kernel")
 LIBRARY_POOL_KERNELS = ("max_pool_backward", "cummax")
 WARMUP_STEPS = 10
 

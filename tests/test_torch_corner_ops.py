@@ -231,6 +231,44 @@ def test_max_pool_bwd_wrapper_rejects_bad_input():
         port_max_pool.max_pool_3x3_s2_bwd(x[0], torch.zeros(2, 3, 4))
 
 
+def test_max_pool_bwd_plain_adds_windows_in_ascending_order():
+    """Pixel (1, 1) is the maximum of all four windows (0, 0), (0, 1),
+    (1, 0), (1, 1); with their dy (2^24, 1, -2^24, 1) the float32 sum in
+    ascending (oy, ox) order is ((2^24 + 1) - 2^24) + 1 = 1 (2^24 + 1
+    rounds to 2^24), in the reverse order 2. The kernel adds in the same
+    ascending order and is held to this version to the bit on the card."""
+    x = torch.zeros(1, 1, 4, 4)
+    x[0, 0, 1, 1] = 10.0
+    dy = torch.tensor([[2.0 ** 24, 1.0], [-2.0 ** 24, 1.0]]).view(1, 1, 2, 2)
+    reverse = np.float32(0)
+    for v in dy.flatten().numpy()[::-1]:
+        reverse = np.float32(reverse + v)
+    assert reverse == 2.0
+    want = torch.zeros(1, 1, 4, 4)
+    want[0, 0, 1, 1] = 1.0
+    assert torch.equal(port_max_pool.max_pool_3x3_s2_bwd_plain(x, dy), want)
+    assert torch.equal(port_max_pool.max_pool_3x3_s2_bwd(x, dy), want)
+
+
+@pytest.mark.parametrize("case", ["dy_other_type", "float16", "float64",
+                                  "dy_rows", "dy_batch", "five_dims"])
+def test_max_pool_bwd_wrapper_refuses(case):
+    """What the kernel does not take the wrapper refuses, on the CPU as
+    on the card (the checks come before the device is looked at)."""
+    x = torch.zeros(2, 3, 7, 9)
+    dy = torch.zeros(2, 3, 4, 5)
+    x, dy, error = {
+        "dy_other_type": (x.bfloat16(), dy, TypeError),
+        "float16": (x.half(), dy.half(), TypeError),
+        "float64": (x.double(), dy.double(), TypeError),
+        "dy_rows": (x, torch.zeros(2, 3, 3, 5), ValueError),
+        "dy_batch": (x, torch.zeros(1, 3, 4, 5), ValueError),
+        "five_dims": (x[None], dy[None], ValueError),
+    }[case]
+    with pytest.raises(error):
+        port_max_pool.max_pool_3x3_s2_bwd(x, dy)
+
+
 def test_pool_gradient_flows_when_the_kernel_output_has_no_graph(
         monkeypatch):
     """On a card the forward kernel fills a fresh tensor with no autograd

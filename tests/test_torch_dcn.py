@@ -145,6 +145,80 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         dcn.dcn_gather_bwd(x, p, p, torch.zeros(1, 4, 2))
 
 
+@pytest.mark.parametrize("case", ["g_rows", "g_channels", "g_float64",
+                                  "px_shape", "py_batch", "x_three_dims"])
+def test_bwd_wrapper_refuses_what_the_kernel_does_not_take(case):
+    x = torch.zeros(2, 3, 4, 5)
+    p = torch.zeros(2, 6)
+    g = torch.zeros(2, 6, 5)
+    args, error = {
+        "g_rows": ((x, p, p, torch.zeros(2, 7, 5)), ValueError),
+        "g_channels": ((x, p, p, torch.zeros(2, 6, 4)), ValueError),
+        "g_float64": ((x, p, p, g.double()), TypeError),
+        "px_shape": ((x, p, torch.zeros(2, 5), g), ValueError),
+        "py_batch": ((x, torch.zeros(1, 6), torch.zeros(1, 6), g[:1]),
+                     ValueError),
+        "x_three_dims": ((x[0], p, p, g), ValueError),
+    }[case]
+    with pytest.raises(error):
+        dcn.dcn_gather_bwd(*args)
+
+
+def _plan_shapes():
+    """(H, W, C): the DCN's S/32 map, ``chip_smoke``'s edge shapes and a
+    200 x 200 x 64 map."""
+    import chip_smoke
+
+    shapes = [(16, 16, 512), (200, 200, 64)] + [
+        shape[1:4] for shape in chip_smoke.DCN_EDGE_SHAPES]
+    return list(dict.fromkeys(shapes))
+
+
+@pytest.mark.parametrize("shape", _plan_shapes(), ids=str)
+def test_bwd_plan_fits_shared_memory_and_covers_the_map_once(shape):
+    """Every block's x and dx tiles fit the 232,448 bytes of shared memory
+    a block may use, and the blocks' channel slices, bands of rows and
+    tiles of columns cover C, H and W exactly once. The dpy/dpx scratch holds at most four parts per
+    slice, whatever the map's size: a sample's corners reach at most 2 x
+    2 tiles."""
+    h, w, c = shape
+    plan = dcn.bwd_plan(h, w, c)
+    assert 1 <= plan.cs <= dcn.MAX_SLICE
+    assert plan.shared_bytes() <= dcn.SHARED_BYTES == 232448
+    blocks = 0
+    for size, step, axis in ((c, plan.cs, "C"), (h, plan.rows, "H"),
+                             (w, plan.cols, "W")):
+        covered = np.zeros(size, int)
+        starts = range(0, size, step)
+        for start in starts:
+            covered[start:start + min(step, size - start)] += 1
+        assert (covered == 1).all(), axis
+        blocks = len(starts) if blocks == 0 else blocks * len(starts)
+    slices = -(-c // plan.cs)
+    assert slices <= plan.parts(h, w, c) <= 4 * slices
+    n = h * w * 9  # a 3x3 DCN's samples
+    index, parts = dcn.bwd_scratch(2, h, w, c, n, plan, "cpu")
+    assert index.shape == (2 * (n + (h + 1) * (w + 1) + 1),)
+    assert parts.shape == (2, 2, plan.parts(h, w, c), n)
+    if (h, w, c) == (16, 16, 512):  # one tile covers the DCN's map
+        assert plan == dcn.BwdPlan(32, 16, 16) and blocks == 16
+        assert plan.parts(h, w, c) == 16
+    if (h, w, c) == (200, 200, 64):  # bands of one row: two row slots
+        assert plan == dcn.BwdPlan(32, 1, 200) and blocks == 400
+        # 11.5 MB an image, an eighth of its cotangent g (B, N, C)
+        assert parts[:, 0].numel() * 4 == 11_520_000 == n * c * 4 // 8
+
+
+def test_profile_kernels_needs_a_card(monkeypatch):
+    """The kernel timer refuses to start without a card rather than time
+    the plain versions on the CPU."""
+    from scd_resnet_tpu_torch import profile_kernels
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        profile_kernels.main()
+
+
 @pytest.fixture(scope="module")
 def golden_grads():
     """``deform_conv2d`` on the goldens' inputs, its output and the
