@@ -81,17 +81,25 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
    agree bit for bit (serving is deterministic). Two of the clips then go
    through the same model on the CPU, and the card's decode rows must
    match the CPU's (tolerances at ``compare_rows``);
-7. holds the heatmap-render kernel (``csrc/render_heatmap.cu``) against
-   its plain version at the train batch's shape, 32 clips x 30 loc
-   records -> 128x128, on the archive's records plus edge cases
+7. holds the heatmap-render kernel (``csrc/render_heatmap.cu``), one
+   launch for every label map of a batch, against its plain version in
+   each of its map sets: M = 1 (the center map), M = 3 (center, tl and
+   br, the corners derived in the kernel) and one corner map at seeded
+   arbitrary offsets. It does so at the train batch's shape, 32 clips x
+   30 loc records -> 128x128, on the archive's records plus edge cases
    (overlapping objects, invalid lanes, a clip with no objects, centers
-   in (-1, 0) and at S - 1, zero-size objects), and at the validation
-   pre-render's shape: the center variant within 1e-6 with the same
-   pixels at exactly 1.0 and every valid center a peak of 1.0; the
-   corner variant (corner radius, the tl and br offsets of the batch
-   transform, plus corners in (-1, 0), at S - 1 and beyond S) equal to
-   the bit. It times both variants and the plain versions; no single
-   PyTorch call computes the render, so they have no library time;
+   in (-1, 0) and at S - 1, zero-size objects, corners in (-1, 0), at
+   S - 1 and beyond S), at the validation pre-render's shape, and at
+   sides 6, 8, 37 and 130 that cut its bands of rows unevenly or its
+   4-pixel stores: the center map within 1e-6 with the same pixels at
+   exactly 1.0, every valid center a peak of 1.0 and the same bits in
+   M = 1 and M = 3; the corner maps and the offset map equal to the bit;
+   a corner in (-1, 0) stamped at 0. At the train shape it times each map
+   set by ``torch.profiler`` (the wrapper must launch the one kernel and
+   nothing else), by CUDA events around C launches issued back to back
+   from Python (host-issued time, labelled so), the plain version, the
+   bound, and the floor: a one-element add's device time. No single
+   PyTorch call computes the render, so it has no library time;
 8. trains ``centerOffsetRes10`` at exp74's widths (512x512 clips, batch
    32, bf16, Adam 1.25e-4) through ``python -m scd_resnet_tpu_torch.train``'s
    own entry function on the synthetic archive, with the cuts it prints
@@ -100,14 +108,13 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
    ``cornerCPoolRes10`` under ``configs/cpool_best.json`` and
    ``centerOffsetRes10dcn`` under ``configs/dcn_full.json`` the same way.
    The launch counts are set to 0 just before each model's first run and
-   read just after its resumed one, and must be exact: exp74 launches the
-   center render once a train step plus once per validation pre-render
-   chunk and the max-pool backward once a step; cpool_best launches the
-   center render and the two corner renders as often, the max-pool
-   backward once a step, the corner-pool forward four times a step and
-   four times in each validation forward ([Tr] included), the
-   corner-pool backward four times a step; dcn_full launches what exp74
-   launches, plus the gather's forward once a step and once in each
+   read just after its resumed one, and must be exact: every model
+   launches the render once a train step and once per validation
+   pre-render chunk (cpool_best's three maps in that one launch) and the
+   max-pool backward once a step; cpool_best launches the corner-pool
+   forward four times a step and four times in each validation forward
+   ([Tr] included), the corner-pool backward four times a step; dcn_full
+   launches what exp74 launches, plus the gather's forward once a step and once in each
    validation forward and its backward once a step; each run no other
    kernel. Every loss must be finite, the mean focal loss of the last 10
    steps below that of the first 10, the [It] lines must parse (mIoU,
@@ -129,7 +136,8 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
    probe moves from float32 rounding alone;
 10. prints one ``{"kernels": [...]}`` line (each kernel's ``launches``
    from the newest path that runs it, named in ``main_path``, and its
-   counts on every path), the card's name and power limit, and as the
+   counts on every path; the render once, its map sets' numbers under
+   ``map_sets``), the card's name and power limit, and as the
    last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
@@ -166,11 +174,7 @@ from scd_resnet_tpu_torch.core.config import Configuration
 from scd_resnet_tpu_torch.core.device import reproducible_float32
 from scd_resnet_tpu_torch.data.archive import read_archive
 from scd_resnet_tpu_torch.data.dataset import VALIDATION_CHUNK, SCDDataset
-from scd_resnet_tpu_torch.data.pipeline import (
-    THRESHOLD_IOU,
-    corner_offsets,
-    identity_draws,
-)
+from scd_resnet_tpu_torch.data.pipeline import THRESHOLD_IOU, identity_draws
 from scd_resnet_tpu_torch.data.synthetic import make_archive
 from scd_resnet_tpu_torch.infer.analyse import make_device_tiler
 from scd_resnet_tpu_torch.infer.server import create_server
@@ -181,11 +185,13 @@ from scd_resnet_tpu_torch.ops import dcn
 from scd_resnet_tpu_torch.ops import gaussian
 from scd_resnet_tpu_torch.ops import max_pool as mp
 from scd_resnet_tpu_torch.ops.radius import corner_threshold_radius
+from scd_resnet_tpu_torch.profile_kernels import device_kernels
 from scd_resnet_tpu_torch.profile_serve import device_ms
 from scd_resnet_tpu_torch.profile_train import (
     CPOOL_BEST,
     DCN_FULL,
     EXP74,
+    RENDER_KERNEL,
     SYNTHETIC_ARCHIVE,
     settings,
 )
@@ -1069,22 +1075,37 @@ def render_edge_cases(locs: torch.Tensor, counts: torch.Tensor):
     return locs, valid
 
 
+def map_geometries(locs: torch.Tensor, valid: torch.Tensor, size: int,
+                   corner_targets: bool = False, position_offset=None):
+    """What each map of a map set derives from the objects: the center
+    map and the tl and br maps, or one corner map at the given offsets."""
+    if position_offset is not None:
+        return [gaussian.object_geometry(
+            locs, valid, size, THRESHOLD_IOU, corner_threshold_radius,
+            position_offset)]
+    maps = [gaussian.object_geometry(locs, valid, size, THRESHOLD_IOU)]
+    if corner_targets:
+        maps += [gaussian.object_geometry(locs, valid, size, THRESHOLD_IOU,
+                                          corner_threshold_radius, offset)
+                 for offset in gaussian.corner_offsets(locs)]
+    return maps
+
+
 def render_bound_ms(locs: torch.Tensor, valid: torch.Tensor, size: int,
-                    radius_fn=None, position_offset=None):
-    """The least time for the render on these inputs: locs, valid (and
-    the offsets) and the heatmap each cross memory once; the operations
-    are those of the (pixel, object) terms inside a valid object's box,
-    as this data needs them, plus one clamp per pixel. Returns (ms,
-    "bytes"|"operations")."""
-    cx, cy, ok, roi, _ = gaussian.object_geometry(
-        locs, valid, size, THRESHOLD_IOU, radius_fn, position_offset)
-
-    def span(c):
-        return (torch.clamp(c + roi, max=size - 1)
-                - torch.clamp(c - roi, min=0) + 1).clamp_min(0)
-
-    terms = int((span(cx) * span(cy) * ok).sum().item())
-    pixels = locs.shape[0] * size * size
+                    corner_targets: bool = False, position_offset=None):
+    """The least time for one launch on these inputs: locs, valid (and
+    the caller's offsets) and the M maps each cross memory once; the
+    operations are those of the (pixel, object) terms inside a valid
+    object's box on each map, as this data needs them, plus one clamp per
+    pixel. Returns (ms, "bytes"|"operations")."""
+    maps = map_geometries(locs, valid, size, corner_targets, position_offset)
+    terms = 0
+    for cx, cy, ok, roi, _ in maps:
+        def span(c):
+            return (torch.clamp(c + roi, max=size - 1)
+                    - torch.clamp(c - roi, min=0) + 1).clamp_min(0)
+        terms += int((span(cx) * span(cy) * ok).sum().item())
+    pixels = len(maps) * locs.shape[0] * size * size
     n_bytes = locs.numel() * 4 + valid.numel() + pixels * 4
     if position_offset is not None:
         n_bytes += position_offset.numel() * 4
@@ -1103,45 +1124,177 @@ def compare_heat(got: torch.Tensor, ref: torch.Tensor, what: str) -> float:
     return err
 
 
-def time_render(l, v, offsets=None):
-    """Device times of the C entry point launched back to back (a Python
-    wrapper call takes longer to issue than the kernel takes to run, so
-    timing the wrapper in a loop would time the host), of the wrapper as
-    the batch transform calls it, and of the plain version."""
-    kwargs = {} if offsets is None else {
-        "radius_fn": corner_threshold_radius, "position_offset": offsets}
-    v8 = v.to(torch.uint8)
-    heat = torch.empty((l.shape[0], HEAT, HEAT), device="cuda")
+def render_map_sets(l, v, offset):
+    """The kernel's three map sets on (l, v): name -> (wrapper call, its
+    plain version, the C entry point's (offsets, M), the bound's
+    arguments)."""
+    def center():
+        return gaussian.render_label_heatmaps(l, v, HEAT, False,
+                                              THRESHOLD_IOU)
+
+    def corners():
+        return gaussian.render_label_heatmaps(l, v, HEAT, True, THRESHOLD_IOU)
+
+    def offset_map():
+        return gaussian.render_heatmap(l, v, HEAT, THRESHOLD_IOU,
+                                       radius_fn=corner_threshold_radius,
+                                       position_offset=offset)[None]
+
+    return {
+        "center": (center, lambda: gaussian.render_label_heatmaps_plain(
+            l, v, HEAT, False, THRESHOLD_IOU), (None, 1), {}),
+        "center+tl+br": (corners, lambda: gaussian.render_label_heatmaps_plain(
+            l, v, HEAT, True, THRESHOLD_IOU), (None, 3),
+            {"corner_targets": True}),
+        "offset": (offset_map, lambda: gaussian.render_heatmap_plain(
+            l, v, HEAT, THRESHOLD_IOU, radius_fn=corner_threshold_radius,
+            position_offset=offset)[None], (offset, 1),
+            {"position_offset": offset}),
+    }
+
+
+def check_render_maps(name, l, v, offset):
+    """Every map set of the kernel against its plain version on (l, v):
+    the center map within 1e-6 with the same pixels at 1.0 and every
+    valid center a peak of 1.0, the same bits in M = 1 and M = 3; the
+    corner maps and the offset map equal to the bit. Returns the center
+    map's max abs error."""
+    got = {}
+    for set_name, (fn, plain, _, _) in render_map_sets(l, v,
+                                                       offset).items():
+        got[set_name] = fn()
+        torch.cuda.synchronize()
+        ref = plain()
+        if set_name == "offset":
+            if not torch.equal(got[set_name], ref):
+                raise AssertionError("render {} offset map differs from its "
+                                     "plain version by {}".format(
+                                         name, (got[set_name] - ref).abs()
+                                         .max().item()))
+            continue
+        err = compare_heat(got[set_name][0], ref[0],
+                           "render {} {} map 0".format(name, set_name))
+        for m in range(1, ref.shape[0]):
+            if not torch.equal(got[set_name][m], ref[m]):
+                raise AssertionError("render {} corner map {} differs from "
+                                     "its plain version by {}".format(
+                                         name, m, (got[set_name][m] - ref[m])
+                                         .abs().max().item()))
+    center, three = got["center"][0], got["center+tl+br"]
+    if not torch.equal(three[0], center):
+        raise AssertionError("render {}: the center map of M = 3 differs from "
+                             "M = 1's".format(name))
+    if not torch.equal(gaussian.render_heatmap(l, v, HEAT, THRESHOLD_IOU),
+                       center):
+        raise AssertionError("render {}: render_heatmap differs from the "
+                             "M = 1 launch".format(name))
+    cx, cy, ok, _, _ = gaussian.object_geometry(l, v, HEAT, THRESHOLD_IOU)
+    b = torch.arange(l.shape[0], device="cuda")[:, None].expand_as(ok)
+    if not bool((center[b[ok], cy[ok].long(), cx[ok].long()] == 1.0).all()):
+        raise AssertionError("render {}: a valid center is not 1.0".format(
+            name))
+    log("render {}: {} -> M = 1 and M = 3 match their plain versions (center "
+        "map max abs {:.3g}, {} centers at exactly 1.0; {} tl and {} br "
+        "pixels at 1.0, equal to the bit), the offset map equal to the "
+        "bit".format(name, tuple(l.shape), err, int(ok.sum()),
+                     int((three[1] == 1.0).sum()),
+                     int((three[2] == 1.0).sum())))
+    return err, three
+
+
+def time_render(l, v, offset):
+    """For each map set at these inputs: the kernel's device time by
+    ``torch.profiler`` (the wrapper as the batch transform calls it), the
+    C entry point launched back to back from Python and timed by CUDA
+    events (host-issued: a launch may take longer to issue than to run),
+    the plain version's time and the bound; and the floor, the device
+    time of a one-element add."""
     lib = gaussian.library()
     stream = torch.cuda.current_stream().cuda_stream
-    offset_ptr = None if offsets is None else offsets.data_ptr()
+    result = {}
+    for set_name, (fn, plain, (offsets, maps), bound_args) in \
+            render_map_sets(l, v, offset).items():
+        heat = torch.empty((maps, l.shape[0], HEAT, HEAT), device="cuda")
+        offset_ptr = None if offsets is None else offsets.data_ptr()
 
-    def launch():
-        return lib.render_heatmap_f32(l.data_ptr(), v8.data_ptr(), offset_ptr,
-                                      heat.data_ptr(), l.shape[0], l.shape[1],
-                                      HEAT, THRESHOLD_IOU, stream)
+        def launch():
+            return lib.render_heatmaps_f32(
+                l.data_ptr(), v.data_ptr(), offset_ptr, heat.data_ptr(),
+                l.shape[0], l.shape[1], HEAT, maps, THRESHOLD_IOU, stream)
 
-    cuda_build.check(lib, launch(), "render_heatmap_f32")
-    bound_ms, bound_by = render_bound_ms(l, v, HEAT, **kwargs)
-    result = {
-        "ms": device_ms(launch, 500, warmup=10),
-        "wrapper_ms": device_ms(lambda: gaussian.render_heatmap(
-            l, v, HEAT, THRESHOLD_IOU, **kwargs), 200, warmup=10),
-        "plain_ms": device_ms(lambda: gaussian.render_heatmap_plain(
-            l, v, HEAT, THRESHOLD_IOU, **kwargs), 20, warmup=2),
-        "bound_ms": bound_ms, "bound_by": bound_by,
-    }
-    if not torch.equal(heat, gaussian.render_heatmap(l, v, HEAT,
-                                                     THRESHOLD_IOU, **kwargs)):
-        raise AssertionError("render_heatmap: direct launches differ")
-    return result
+        cuda_build.check(lib, launch(), "render_heatmaps_f32")
+        kernels = device_kernels(fn, 50)["kernels"]
+        names = [n for n in kernels if RENDER_KERNEL in n]
+        if len(kernels) != 1 or len(names) != 1 or \
+                kernels[names[0]]["launches"] != 1:
+            raise AssertionError("render {}: the wrapper launched {}, not "
+                                 "one render kernel".format(set_name,
+                                                            kernels))
+        bound_ms, bound_by = render_bound_ms(l, v, HEAT, **bound_args)
+        result[set_name] = {
+            "maps": maps, "ms": kernels[names[0]]["ms"],
+            "host_issued_event_ms": device_ms(launch, 500, warmup=10),
+            "plain_ms": device_ms(plain, 20, warmup=2),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        if not torch.equal(heat, fn()):
+            raise AssertionError("render {}: direct launches differ".format(
+                set_name))
+    one = torch.ones(1, device="cuda")
+    floor = device_kernels(lambda: torch.add(one, one), 50)["ms"]
+    for set_name, r in result.items():
+        log("render {} (M = {}) at {}: kernel {:.5f} ms by the profiler "
+            "(host-issued event time of back-to-back C launches {:.5f} ms), "
+            "plain {:.4f} ms, bound {:.6f} ms ({}), floor (a one-element "
+            "add) {:.5f} ms".format(set_name, r["maps"], tuple(l.shape),
+                                    r["ms"], r["host_issued_event_ms"],
+                                    r["plain_ms"], r["bound_ms"],
+                                    r["bound_by"], floor))
+    return result, floor
+
+
+def render_tile_edges(locs: torch.Tensor, valid: torch.Tensor) -> float:
+    """The kernel at sides that cut its blocks' bands of rows, its warps'
+    tiles of 8 rows x 16 pixels and its 4-pixel stores unevenly: S = 6
+    (blocks with no rows), 8 (one row a block), 37 (scalar stores, short
+    tiles) and 130 (a one-row tile, a ragged tile column); the records
+    scaled onto the map, all three map sets against their plain
+    versions."""
+    err = 0.0
+    gen = torch.Generator().manual_seed(6)
+    for size in (6, 8, 37, 130):
+        l = locs.clone()
+        l[..., :2] *= size / HEAT
+        l[..., 4:7] *= size / HEAT
+        l, v = l.cuda(), valid.cuda()
+        offset = ((torch.rand((*l.shape[:2], 2), generator=gen) - 0.5)
+                  * size / 4).cuda()
+        three = gaussian.render_label_heatmaps(l, v, size, True, THRESHOLD_IOU)
+        one = gaussian.render_heatmap(l, v, size, THRESHOLD_IOU,
+                                      radius_fn=corner_threshold_radius,
+                                      position_offset=offset)
+        torch.cuda.synchronize()
+        ref = gaussian.render_label_heatmaps_plain(l, v, size, True,
+                                                   THRESHOLD_IOU)
+        err = max(err, compare_heat(three[0], ref[0],
+                                    "render at S = {}".format(size)))
+        if not (torch.equal(three[1:], ref[1:]) and torch.equal(
+                one, gaussian.render_heatmap_plain(
+                    l, v, size, THRESHOLD_IOU,
+                    radius_fn=corner_threshold_radius,
+                    position_offset=offset))):
+            raise AssertionError("render at S = {}: a corner or offset map "
+                                 "differs from its plain version".format(size))
+    log("render at S = 6, 8, 37, 130: every map set matches its plain "
+        "version (center max abs {:.3g})".format(err))
+    return err
 
 
 def check_render(archive: str):
-    """The render kernel's center and corner variants against their plain
-    versions on the card at the train batch's shape (with the edge cases)
-    and at the validation pre-render's; then their times and bounds at the
-    train shape."""
+    """Phase 7: the render kernel's map sets against their plain versions
+    on the card at the train batch's shape (with the edge cases), at the
+    validation pre-render's and at sides that cut its row bands
+    unevenly; then their times and bounds at the train shape."""
     _, _, all_locs, all_counts = read_archive(archive)
     all_locs, all_counts = (torch.from_numpy(all_locs),
                             torch.from_numpy(all_counts))
@@ -1153,78 +1306,41 @@ def check_render(archive: str):
         "validation": (all_locs[:n_val],
                        torch.arange(k)[None, :] < all_counts[:n_val, None]),
     }
+    gen = torch.Generator().manual_seed(7)
     err = 0.0
     for name, (l, v) in cases.items():
-        l, v = l.cuda(), v.cuda()
-        got = gaussian.render_heatmap(l, v, HEAT, THRESHOLD_IOU)
-        torch.cuda.synchronize()
-        ref = gaussian.render_heatmap_plain(l, v, HEAT, THRESHOLD_IOU)
-        err = max(err, compare_heat(got, ref, "render_heatmap " + name))
-        cx, cy, ok, _, _ = gaussian.object_geometry(l, v, HEAT, THRESHOLD_IOU)
-        b = torch.arange(l.shape[0], device="cuda")[:, None].expand_as(ok)
-        peaks = got[b[ok], cy[ok].long(), cx[ok].long()]
-        if not bool((peaks == 1.0).all()):
-            raise AssertionError("render_heatmap {}: a valid center is not "
-                                 "1.0".format(name))
-        stamped = {}
-        for corner, offset in zip(("tl", "br"), corner_offsets(l)):
-            got = gaussian.render_heatmap(
-                l, v, HEAT, THRESHOLD_IOU, radius_fn=corner_threshold_radius,
-                position_offset=offset)
-            torch.cuda.synchronize()
-            ref = gaussian.render_heatmap_plain(
-                l, v, HEAT, THRESHOLD_IOU, radius_fn=corner_threshold_radius,
-                position_offset=offset)
-            if not torch.equal(got, ref):
-                raise AssertionError("render_heatmap {} {} corners differ "
-                                     "from the plain version by {}".format(
-                                         name, corner,
-                                         (got - ref).abs().max().item()))
-            stamped[corner] = int((got == 1.0).sum())
-        log("render_heatmap {}: {} -> {} center variant matches its plain "
-            "version (max abs {:.3g}), {} centers at exactly 1.0; corner "
-            "variant equal to the bit ({} tl and {} br pixels at 1.0)".format(
-                name, tuple(l.shape), tuple(got.shape), err, int(ok.sum()),
-                stamped["tl"], stamped["br"]))
-    if not bool((gaussian.render_heatmap(
-            locs[5:6].cuda(), valid[5:6].cuda(), HEAT, THRESHOLD_IOU,
-            radius_fn=corner_threshold_radius,
-            position_offset=corner_offsets(locs[5:6].cuda())[0])[0, 0, 0]
-            == 1.0)):
-        raise AssertionError("render_heatmap: a corner in (-1, 0) is not "
-                             "stamped at 0")
-
+        offset = ((torch.rand((*l.shape[:2], 2), generator=gen) - 0.5)
+                  * 24).cuda()
+        case_err, three = check_render_maps(name, l.cuda(), v.cuda(), offset)
+        err = max(err, case_err)
+        if name == "train" and not bool(three[1, 5, 0, 0] == 1.0):
+            raise AssertionError("render: a corner in (-1, 0) is not "
+                                 "stamped at 0")
+    err = max(err, render_tile_edges(locs, valid))
     l, v = locs.cuda(), valid.cuda()
-    result = time_render(l, v)
-    result["max_abs_err"] = err
-    corner = time_render(l, v, corner_offsets(l)[1].contiguous())
-    corner["max_abs_err"] = 0.0
-    for what, r in (("center", result), ("corner", corner)):
-        log("render_heatmap {} variant at {}: kernel {:.4f} ms (the wrapper, "
-            "as the batch transform calls it, {:.4f} ms), plain {:.4f} ms, "
-            "bound {:.6f} ms ({})".format(
-                what, tuple(locs.shape), r["ms"], r["wrapper_ms"],
-                r["plain_ms"], r["bound_ms"], r["bound_by"]))
-    return result, corner
+    _, offset = gaussian.corner_offsets(l)
+    result, floor = time_render(l, v, offset.contiguous())
+    return {"map_sets": result, "floor_ms": floor, "max_abs_err": err}
 
 
-def render_entries(center, corner):
-    entries = []
-    for name, result in ((gaussian.KERNEL_NAME, center),
-                         (gaussian.CORNER_KERNEL_NAME, corner)):
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": "scd_resnet_tpu_torch/csrc/render_heatmap.cu",
-            "replaces": "scd_resnet_tpu/ops/pallas_kernels.py:77",
-            "max_abs_err": result["max_abs_err"],
-            "ms": result["ms"], "wrapper_ms": result["wrapper_ms"],
-            "plain_ms": result["plain_ms"],
-            "bound_ms": result["bound_ms"], "bound_by": result["bound_by"],
-            "library_ms": None,
-            "library_note": "no single PyTorch call renders the heatmap",
-            "shape": [BATCH, 30, 8, HEAT],
-        })
-    return entries
+def render_entry(render):
+    """K1's line: its numbers are the center map set's (M = 1, what the
+    newest path that runs it launches), each map set's under
+    ``map_sets``."""
+    center = render["map_sets"]["center"]
+    return {
+        "name": gaussian.KERNEL_NAME, "route": "cuda",
+        "source": "scd_resnet_tpu_torch/csrc/render_heatmap.cu",
+        "replaces": "scd_resnet_tpu/ops/pallas_kernels.py:77",
+        "max_abs_err": render["max_abs_err"],
+        "ms": center["ms"], "plain_ms": center["plain_ms"],
+        "bound_ms": center["bound_ms"], "bound_by": center["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call renders the heatmap",
+        "floor_ms": render["floor_ms"],
+        "map_sets": render["map_sets"],
+        "shape": [BATCH, 30, 8, HEAT],
+    }
 
 
 # -- 8. training exp74, cpool_best and dcn_full -----------------------------------------
@@ -1240,7 +1356,7 @@ def expected_launches(config, steps: int, n_val: int):
     rendering the validation set once) must launch, kernel by kernel."""
     chunks = 2 * math.ceil(n_val / VALIDATION_CHUNK)
     expected = {name: 0 for name in cuda_build.LAUNCHES}
-    expected[gaussian.KERNEL_NAME] = steps + chunks
+    expected[gaussian.KERNEL_NAME] = steps + chunks  # every map set at once
     expected[mp.KERNEL_NAME] = steps
     batch = config["validationBatchSize"]
     per_validation = 1 + (1 if n_val <= batch else n_val // batch)
@@ -1249,7 +1365,6 @@ def expected_launches(config, steps: int, n_val: int):
         expected[dcn.KERNEL_NAME] = forwards
         expected[dcn.BWD_KERNEL_NAME] = steps
     if config["modelName"].startswith("cornerCPool"):
-        expected[gaussian.CORNER_KERNEL_NAME] = 2 * (steps + chunks)
         for dim in cp.KERNEL_NAMES:
             expected[cp.KERNEL_NAMES[dim]] = 2 * forwards
             expected[cp.BWD_KERNEL_NAMES[dim]] = 2 * steps
@@ -1496,8 +1611,8 @@ def main() -> int:
             writer.kill()
             writer.wait()
 
-    # 7. the render kernel's variants against their plain versions
-    center, corner = check_render(archive)
+    # 7. the render kernel's map sets against their plain versions
+    render = check_render(archive)
     t0 = mark("render_check", t0)
     # 8. train exp74, cpool_best and dcn_full and resume each; the counts
     # are reset inside, just before each first run
@@ -1529,7 +1644,7 @@ def main() -> int:
              "train_exp74": trained[0]["launches"],
              "train_cpool_best": trained[1]["launches"],
              "train_dcn_full": trained[2]["launches"]}
-    kernels = (render_entries(center, corner)
+    kernels = ([render_entry(render)]
                + pool_entries(cp.KERNEL_NAMES,
                               "scd_resnet_tpu/ops/pallas_kernels.py:260",
                               POOL_SHAPE, pool_results, pool_bound,

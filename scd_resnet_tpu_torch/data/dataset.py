@@ -34,7 +34,7 @@ from scd_resnet_tpu_torch.data.archive import read_archive
 from scd_resnet_tpu_torch.data.pipeline import augment_and_render_batch
 
 _NAME_RE = re.compile(r"^(?P<img>.+?)\.(?P<rep>\d+)\.(?P<clip>\d+)\.npy$")
-VALIDATION_CHUNK = 256  # clips per pre-render call (one K1 launch per heatmap)
+VALIDATION_CHUNK = 256  # clips per pre-render call (one K1 launch each)
 
 
 def as_storage(samples: np.ndarray, storage_dtype: str) -> np.ndarray:

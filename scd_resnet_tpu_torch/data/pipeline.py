@@ -6,11 +6,11 @@ Counterpart of ``scd_resnet_tpu/data/pipeline.augment_and_render_batch``
 - random horizontal/vertical flips with the matching loc-record flips;
 - per-clip standardisation, variance jitter, Gaussian pixel noise;
 - the tag mask (real and in-bounds objects) and flat heatmap indices;
-- the Gaussian heatmap at IoU 0.5, rendered by the K1 kernel
-  (``ops/gaussian.render_heatmap``) on a CUDA tensor;
-- with ``corner_targets=True`` (the corner families), the top-left and
-  bottom-right corner heatmaps as well: corners at the center -/+ (|maj|,
-  minL), rendered by K1's corner variant with the corner radius.
+- the Gaussian heatmap at IoU 0.5 and, with ``corner_targets=True``
+  (the corner families), the top-left and bottom-right corner heatmaps
+  (corners at the center -/+ (|maj|, minL), the corner radius), all
+  rendered by one launch of the K1 kernel
+  (``ops/gaussian.render_label_heatmaps``) on a CUDA tensor.
 
 The random draws are an argument (:class:`Draws`), not drawn inside: the
 trainer makes them from a per-step ``torch.Generator`` (:func:`draw`),
@@ -29,8 +29,7 @@ from scd_resnet_tpu_torch.ops.augment import (
     flip_locs_vertical,
     normalize,
 )
-from scd_resnet_tpu_torch.ops.gaussian import render_heatmap
-from scd_resnet_tpu_torch.ops.radius import corner_threshold_radius, sqrt_rn
+from scd_resnet_tpu_torch.ops.gaussian import render_label_heatmaps
 
 THRESHOLD_IOU = 0.5  # scdx16p100.py:52
 
@@ -70,16 +69,6 @@ def identity_draws(batch: int, size: int, device: torch.device) -> Draws:
     no = torch.zeros(batch, dtype=torch.bool, device=device)
     return Draws(no, no, torch.zeros((batch, 1, 1), device=device),
                  torch.zeros((batch, size, size), device=device))
-
-
-def corner_offsets(locs: torch.Tensor):
-    """The (B, K, 2) offsets from each center to its top-left and
-    bottom-right corner, -/+ (|maj|, minL), as the JAX corner branch
-    takes them (``scd_resnet_tpu/data/pipeline.py:147-154``)."""
-    maj_l = sqrt_rn(locs[:, :, 4] * locs[:, :, 4]
-                    + locs[:, :, 5] * locs[:, :, 5])
-    half = torch.stack([maj_l, locs[:, :, 6]], dim=-1)
-    return -half, half
 
 
 def augment_and_render_batch(samples: torch.Tensor, locs: torch.Tensor,
@@ -133,15 +122,11 @@ def augment_and_render_batch(samples: torch.Tensor, locs: torch.Tensor,
     indices = torch.where(tag_mask, indices, torch.zeros_like(indices))
 
     regr = locs[:, :, 2:8]
-    locs = locs.contiguous()
-    heat = render_heatmap(locs, present, heat_size, THRESHOLD_IOU)
-    ys = [heat[:, None], tag_mask, regr, indices]
+    # the JAX branch masks the corners with ``present`` alone: a corner in
+    # (-1, 0) truncates to 0 and is stamped there
+    maps = render_label_heatmaps(locs, present, heat_size,
+                                 bool(corner_targets), THRESHOLD_IOU)
+    ys = [maps[0][:, None], tag_mask, regr, indices]
     if corner_targets:
-        # the JAX branch masks the corners with ``present`` alone: a corner
-        # in (-1, 0) truncates to 0 and is stamped there
-        for offset in corner_offsets(locs):
-            corner = render_heatmap(locs, present, heat_size, THRESHOLD_IOU,
-                                    radius_fn=corner_threshold_radius,
-                                    position_offset=offset)
-            ys.append(corner[:, None])
+        ys += [maps[1][:, None], maps[2][:, None]]
     return samples[:, None], ys

@@ -19,8 +19,9 @@ JSON line:
 - ``phases_ms``: one step cut into phases, each timed alone with CUDA
   events over ``--steps`` calls: gather (the batch's rows by index),
   augment+render (the batch transform, heatmaps by the render kernel),
-  render (the kernel alone: the center heatmap, and for a corner model
-  one corner heatmap), forward (training mode, autocast), and
+  render (the kernel alone: one launch of every label map the batch
+  transform renders, the center map and for a corner model the tl and
+  br maps), forward (training mode, autocast), and
   forward+loss+backward;
 - ``kernels``: device time per step by kernel name (``torch.profiler``
   over ``--steps`` steps), the largest first, ``device_busy_share``
@@ -48,14 +49,10 @@ import torch
 
 from scd_resnet_tpu_torch.core.config import Configuration
 from scd_resnet_tpu_torch.core.device import resolve_device, training_backends
-from scd_resnet_tpu_torch.data.pipeline import (
-    augment_and_render_batch,
-    corner_offsets,
-)
+from scd_resnet_tpu_torch.data.pipeline import augment_and_render_batch
 from scd_resnet_tpu_torch.data.synthetic import make_archive
 from scd_resnet_tpu_torch.models.center_net_offset import as_stack_list
-from scd_resnet_tpu_torch.ops.gaussian import render_heatmap
-from scd_resnet_tpu_torch.ops.radius import corner_threshold_radius
+from scd_resnet_tpu_torch.ops.gaussian import render_label_heatmaps
 from scd_resnet_tpu_torch.profile_serve import device_ms
 from scd_resnet_tpu_torch.train.factory import NetworkFactory
 
@@ -68,9 +65,9 @@ DCN_FULL = os.path.join(REPO, "configs", "dcn_full.json")
 # validation
 SYNTHETIC_ARCHIVE = {"num_images": 2, "reps": 1, "clips_per_image": 128,
                      "size": 512, "seed": 74}
-RENDER_KERNEL = "render_heatmap_kernel"
+RENDER_KERNEL = "render_heatmaps_kernel"
 # the port's __global__ kernels, and PyTorch's that they replace
-PORT_KERNELS = ("render_heatmap_kernel", "pool_h_kernel", "pool_w_kernel",
+PORT_KERNELS = (RENDER_KERNEL, "pool_h_kernel", "pool_w_kernel",
                 "pool_bwd_h_kernel", "pool_bwd_w_kernel",
                 "max_pool_bwd_kernel", "dcn_gather_kernel",
                 "dcn_gather_bwd_kernel", "dcn_bucket_sort_kernel",
@@ -132,7 +129,6 @@ def profile(factory: NetworkFactory, steps: int) -> Dict:
     locs = gathered[1].float().contiguous()
     present = (torch.arange(locs.shape[1], device="cuda")[None, :]
                < gathered[2][:, None])
-    _, offset = corner_offsets(locs)
     model, autocast = factory.model, factory.autocast
     model.train()
 
@@ -152,17 +148,13 @@ def profile(factory: NetworkFactory, steps: int) -> Dict:
         "augment_render": device_ms(lambda: augment_and_render_batch(
             *gathered, factory.heat_size, draws=draws,
             corner_targets=corner_targets), steps, warmup=2),
-        "render_kernel": device_ms(lambda: render_heatmap(
-            locs, present, factory.heat_size), steps, warmup=2),
+        "render_kernel": device_ms(lambda: render_label_heatmaps(
+            locs, present, factory.heat_size, bool(corner_targets)),
+            steps, warmup=2),
         "forward": device_ms(forward, steps, warmup=2),
         "forward_loss_backward": device_ms(forward_backward, steps,
                                            warmup=2),
     }
-    if corner_targets:
-        phases["render_corner_kernel"] = device_ms(lambda: render_heatmap(
-            locs, present, factory.heat_size,
-            radius_fn=corner_threshold_radius, position_offset=offset),
-            steps, warmup=2)
 
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
