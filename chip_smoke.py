@@ -63,8 +63,9 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
    positions (per-corner zero padding makes the outer cutoff redundant,
    so it computes the same function up to the rounding of the coordinate
    normalisation) and its backward, ``grid_sampler_2d_backward``;
-6. serves ``cornerCPoolRes10``, ``centerOffsetRes10`` and
-   ``centerOffsetRes10dcn`` at full width through the port's own serve
+6. serves ``cornerCPoolRes10``, ``centerOffsetRes10``,
+   ``centerOffsetRes10dcn``, ``centerOffsetHourglass2`` and
+   ``cornerLegacyHourglass`` at full width through the port's own serve
    entry point (``serve.build_service`` + the HTTP server), from seeded
    random weights whose heat heads are rescaled so that a few dozen
    peaks per clip pass the 0.3 threshold, and POSTs a seeded synthetic
@@ -72,15 +73,17 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
    PNG. Launch counts are set to 0 just before each model's requests and
    read just after: every corner request must launch the corner-pool
    kernel exactly four times (top and left in tl_head, bottom and right
-   in br_head), every DCN request the gather's forward once (the 48
-   clips are one batch), the plain centerOffset requests no kernel, and
-   no request any other kernel. The DCN's seeded samples must include
+   in br_head), every legacy request eight times (the same in each of
+   its two stacks), every DCN request the gather's forward once (the 48
+   clips are one batch), the plain centerOffset and hourglass requests
+   no kernel, and no request any other kernel. The DCN's seeded samples must include
    fractional ones inside the map and ones beyond the outer cutoff, and
    its masks must spread. Detections must be non-empty, inside the slide
    and the same on every request; two forwards of the slide's clips must
    agree bit for bit (serving is deterministic). Two of the clips then go
    through the same model on the CPU, and the card's decode rows must
-   match the CPU's (tolerances at ``compare_rows``);
+   match the CPU's (tolerances at ``compare_rows``; the legacy contract's
+   paired boxes at ``compare_legacy_rows``);
 7. holds the heatmap-render kernel (``csrc/render_heatmap.cu``), one
    launch for every label map of a batch, against its plain version in
    each of its map sets: M = 1 (the center map), M = 3 (center, tl and
@@ -94,8 +97,11 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
    4-pixel stores: the center map within 1e-6 with the same pixels at
    exactly 1.0, every valid center a peak of 1.0 and the same bits in
    M = 1 and M = 3; the corner maps and the offset map equal to the bit;
-   a corner in (-1, 0) stamped at 0. At the train shape it times each map
-   set by ``torch.profiler`` (the wrapper must launch the one kernel and
+   a corner in (-1, 0) stamped at 0; and the legacy batch transform's
+   targets (two launches of the offset set) equal to their plain
+   versions on the card to the bit, and to the CPU's (heatmaps within
+   1e-6). At the train shape it times each map set (the offset set at the
+   legacy targets' br corners and masks) by ``torch.profiler`` (the wrapper must launch the one kernel and
    nothing else), by CUDA events around C launches issued back to back
    from Python (host-issued time, labelled so), the plain version, the
    bound, and the floor: a one-element add's device time. No single
@@ -105,8 +111,11 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
    own entry function on the synthetic archive, with the cuts it prints
    (synthetic data, 40 iterations, validation every 20, a snapshot at
    40), then resumes from that snapshot to iteration 60; then
-   ``cornerCPoolRes10`` under ``configs/cpool_best.json`` and
-   ``centerOffsetRes10dcn`` under ``configs/dcn_full.json`` the same way.
+   ``cornerCPoolRes10`` under ``configs/cpool_best.json``,
+   ``centerOffsetRes10dcn`` under ``configs/dcn_full.json``,
+   ``centerOffsetHourglass2`` under ``configs/hourglass2_best.json`` and
+   ``cornerLegacyHourglass`` under ``configs/legacy_full.json`` (remat)
+   the same way.
    The launch counts are set to 0 just before each model's first run and
    read just after its resumed one, and must be exact: every model
    launches the render once a train step and once per validation
@@ -115,29 +124,40 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
    forward four times a step and four times in each validation forward
    ([Tr] included), the corner-pool backward four times a step; dcn_full
    launches what exp74 launches, plus the gather's forward once a step and once in each
-   validation forward and its backward once a step; each run no other
-   kernel. Every loss must be finite, the mean focal loss of the last 10
+   validation forward and its backward once a step; hourglass2_best only
+   the render (no stem pool); legacy_full the render twice a step and a
+   chunk (its offset set, tl and br), the corner-pool forward eight
+   times a forward and eight more a step in the remat recompute, its
+   backward eight times a step; each run no other kernel. It prints each
+   run's peak memory. Every loss must be finite, the mean focal loss of the last 10
    steps below that of the first 10, the [It] lines must parse (mIoU,
-   AP50 and avgS for exp74 and dcn_full; boxAP50 for cpool_best) and the
-   resumed run must start at iteration 41;
+   AP50 and avgS for exp74, dcn_full and hourglass2_best; boxAP50 for
+   cpool_best; AP50 and mIoU for legacy_full) and the resumed run must
+   start at iteration 41;
 9. takes one float32 train step at full width on 2 clips, augmentation
    off, from the same weights on the card (the kernels) and on the CPU
-   (the plain versions), for ``centerOffsetRes10``, ``cornerCPoolRes10``
-   and ``centerOffsetRes10dcn``: targets within 1e-6, loss within 1e-4
-   relative, global gradient norm within 1e-3 relative (float32
+   (the plain versions), for ``centerOffsetRes10``, ``cornerCPoolRes10``,
+   ``centerOffsetRes10dcn``, ``centerOffsetHourglass2`` and
+   ``cornerLegacyHourglass`` (remat): targets within 1e-6, loss within
+   1e-4 relative, global gradient norm within 1e-3 relative (float32
    convolutions sum in another order on the two devices); a probe
    gradient must be non-zero and within 1e-3 relative too: for the
-   corner model ``tl_head.pool_block.branch1.conv.weight``, which reaches
-   the loss only through the corner pools; for the DCN model rows 0-17
+   corner models ``tl_head.pool_block.branch1.conv.weight`` and
+   ``tl.0.pool_block.branch1.conv.weight``, which reach the loss only
+   through the corner pools; for the DCN model rows 0-17
    (the offsets) of ``deconv_dcn.conv_offset_mask.weight``, which reach
    it only through the gather's dpy and dpx, after that conv is drawn
    from a seed so that the samples sit between pixels. A third step, on
    the CPU with the clips moved by 1e-7 relative, shows how far the
-   probe moves from float32 rounding alone;
+   probe moves from float32 rounding alone. Each BatchNorm's running
+   statistics must have moved once on both devices (``num_batches_tracked``
+   1: a remat recompute adds nothing) and agree within 1e-4 relative
+   (1e-5 absolute);
 10. prints one ``{"kernels": [...]}`` line (each kernel's ``launches``
    from the newest path that runs it, named in ``main_path``, and its
-   counts on every path; the render once, its map sets' numbers under
-   ``map_sets``), the card's name and power limit, and as the
+   counts on every path; the render once, with its offset set's numbers,
+   and every map set's numbers and launches on the path that runs it
+   under ``map_sets``), the card's name and power limit, and as the
    last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 
@@ -174,12 +194,18 @@ from scd_resnet_tpu_torch.core.config import Configuration
 from scd_resnet_tpu_torch.core.device import reproducible_float32
 from scd_resnet_tpu_torch.data.archive import read_archive
 from scd_resnet_tpu_torch.data.dataset import VALIDATION_CHUNK, SCDDataset
-from scd_resnet_tpu_torch.data.pipeline import THRESHOLD_IOU, identity_draws
+from scd_resnet_tpu_torch.data.pipeline import (
+    THRESHOLD_IOU,
+    identity_draws,
+    legacy_corners,
+    legacy_targets,
+)
 from scd_resnet_tpu_torch.data.synthetic import make_archive
 from scd_resnet_tpu_torch.infer.analyse import make_device_tiler
 from scd_resnet_tpu_torch.infer.server import create_server
 from scd_resnet_tpu_torch.infer.synthetic import seeded_model, synthetic_slide
 from scd_resnet_tpu_torch.infer.wrapper import make_wrapper
+from scd_resnet_tpu_torch.models.hourglass import StackHourglass
 from scd_resnet_tpu_torch.ops import corner_pool as cp
 from scd_resnet_tpu_torch.ops import dcn
 from scd_resnet_tpu_torch.ops import gaussian
@@ -191,6 +217,8 @@ from scd_resnet_tpu_torch.profile_train import (
     CPOOL_BEST,
     DCN_FULL,
     EXP74,
+    HOURGLASS2_BEST,
+    LEGACY_FULL,
     RENDER_KERNEL,
     SYNTHETIC_ARCHIVE,
     settings,
@@ -852,7 +880,10 @@ def compare_rows(family, gpu_rows, cpu_rows):
     the score is above 0.3 and at least 1e-4 from its neighbours in the
     ranking (closer scores may swap ranks under another summation order);
     the centerOffset regression rows at those positions within 1e-3
-    relative to the row's largest value."""
+    relative to the row's largest value. The cornerLegacy contract's
+    paired boxes (B, 1000, 8): ``compare_legacy_rows``."""
+    if family == "cornerLegacy":
+        return compare_legacy_rows(gpu_rows, cpu_rows)
     gpu, cpu = gpu_rows.double().cpu(), cpu_rows.double()
     blocks = range(3) if family == "corner" else range(1)
     checked = 0
@@ -879,6 +910,40 @@ def compare_rows(family, gpu_rows, cpu_rows):
     if checked == 0:
         raise AssertionError("no firm peaks to compare")
     return checked
+
+
+def compare_legacy_rows(gpu_rows, cpu_rows):
+    """Paired boxes (B, 1000, 8), card against CPU: every pair above the
+    0.3 threshold by more than 1e-4 on one side has a pair on the other
+    with its score, tlScore and brScore within 1e-4, its category equal
+    and its box within 1e-3 relative to the clip's largest coordinate
+    (pairs closer than 1e-4 may swap ranks, and one at the threshold may
+    fall on either side, under another summation order). Returns the
+    number of pairs matched."""
+    gpu, cpu = gpu_rows.double().cpu(), cpu_rows.double()
+    checked = 0
+    for clip in range(cpu.shape[0]):
+        scale = max(1.0, cpu[clip, :, 0:4].abs().max().item())
+        for a, b in ((cpu[clip], gpu[clip]), (gpu[clip], cpu[clip])):
+            want = a[a[:, 4] > 0.3 + 1e-4]
+            pool = b[b[:, 4] > 0.3 - 1e-4]
+            if len(want) == 0:
+                continue
+            near = (((want[:, None, 4:7] - pool[None, :, 4:7]).abs()
+                     <= 1e-4).all(-1)
+                    & (want[:, None, 7] == pool[None, :, 7])
+                    & (((want[:, None, 0:4] - pool[None, :, 0:4]).abs()
+                        <= 1e-3 * scale).all(-1)))
+            if not bool(near.any(dim=1).all()):
+                raise AssertionError("cornerLegacy: {} of {} pairs above the "
+                                     "threshold have no match on the other "
+                                     "device".format(
+                                         int((~near.any(dim=1)).sum()),
+                                         len(want)))
+            checked += len(want)
+    if checked == 0:
+        raise AssertionError("no pairs above the threshold to compare")
+    return checked // 2
 
 
 def post(url, data, headers):
@@ -910,11 +975,12 @@ def serve_model(arch: str, seed: int, slide, build_dir, card: str,
                                  "X-Height": str(height)})] * (REQUESTS - 1)
     bodies.append((png.getvalue(), {}))
     family = service.contract
-    # top and left pools in tl_head, bottom and right in br_head; the
-    # DCN's gather once for the request's one batch; no other kernel
+    # top and left pools in each tl head, bottom and right in each br
+    # head; the DCN's gather once for the request's one batch; no other
+    # kernel
     per_request = {name: 0 for name in cuda_build.LAUNCHES}
-    if family == "corner":
-        per_request.update({name: 2 for name in cp.KERNEL_NAMES.values()})
+    per_request.update({name: pool_launches_per_forward(arch)
+                        for name in cp.KERNEL_NAMES.values()})
     if is_dcn(arch):
         per_request[dcn.KERNEL_NAME] = 1
         samples = dcn_served_samples(model, clips)
@@ -936,7 +1002,9 @@ def serve_model(arch: str, seed: int, slide, build_dir, card: str,
             if not dets:
                 raise AssertionError("{}: no detections".format(arch))
             for d in dets:
-                if not (0 <= d["x"] < width and 0 <= d["y"] < height):
+                x, y = ((d["tlx"] + d["brx"]) / 2, (d["tly"] + d["bry"]) / 2) \
+                    if family == "cornerLegacy" else (d["x"], d["y"])
+                if not (0 <= x < width and 0 <= y < height):
                     raise AssertionError("{}: detection {} outside the "
                                          "slide".format(arch, d))
         launches = dict(cuda_build.LAUNCHES)
@@ -958,7 +1026,8 @@ def serve_model(arch: str, seed: int, slide, build_dir, card: str,
     if not torch.equal(rows, service.wrapper(clips)):
         raise AssertionError("{}: two forwards of the same clips differ "
                              "(serving must be deterministic)".format(arch))
-    gpu_rows = rows[:, pick]
+    # the legacy contract is batch-major, the others row-major
+    gpu_rows = rows[pick] if family == "cornerLegacy" else rows[:, pick]
     cpu_wrapper = make_wrapper(copy.deepcopy(service.wrapper.model).cpu(),
                                family)
     cpu_rows = cpu_wrapper(clips[pick].cpu())
@@ -982,6 +1051,17 @@ def serve_model(arch: str, seed: int, slide, build_dir, card: str,
 
 def is_dcn(arch: str) -> bool:
     return bool(get_model_profile(arch).model_params.get("dcn"))
+
+
+def pool_launches_per_forward(arch: str) -> int:
+    """Each corner-pool forward kernel's launches in one forward of
+    ``arch``: the H walk for the top and bottom pools, the W scan for the
+    left and right pools, of each pair of corner heads (one pair in
+    ``cornerCPoolRes*``, one a stack in the legacy CornerNet)."""
+    profile = get_model_profile(arch)
+    if profile.family == "cornerLegacy":
+        return 2 * profile.model_params["stacks"]
+    return 2 if arch.startswith("cornerCPool") else 0
 
 
 def dcn_served_samples(model, clips):
@@ -1124,10 +1204,12 @@ def compare_heat(got: torch.Tensor, ref: torch.Tensor, what: str) -> float:
     return err
 
 
-def render_map_sets(l, v, offset):
+def render_map_sets(l, v, offset, offset_valid=None):
     """The kernel's three map sets on (l, v): name -> (wrapper call, its
-    plain version, the C entry point's (offsets, M), the bound's
-    arguments)."""
+    plain version, the C entry point's (valid, offsets, M), the bound's
+    arguments); the offset set takes ``offset_valid`` (default ``v``)."""
+    ov = v if offset_valid is None else offset_valid
+
     def center():
         return gaussian.render_label_heatmaps(l, v, HEAT, False,
                                               THRESHOLD_IOU)
@@ -1136,20 +1218,20 @@ def render_map_sets(l, v, offset):
         return gaussian.render_label_heatmaps(l, v, HEAT, True, THRESHOLD_IOU)
 
     def offset_map():
-        return gaussian.render_heatmap(l, v, HEAT, THRESHOLD_IOU,
+        return gaussian.render_heatmap(l, ov, HEAT, THRESHOLD_IOU,
                                        radius_fn=corner_threshold_radius,
                                        position_offset=offset)[None]
 
     return {
         "center": (center, lambda: gaussian.render_label_heatmaps_plain(
-            l, v, HEAT, False, THRESHOLD_IOU), (None, 1), {}),
+            l, v, HEAT, False, THRESHOLD_IOU), (v, None, 1), {"valid": v}),
         "center+tl+br": (corners, lambda: gaussian.render_label_heatmaps_plain(
-            l, v, HEAT, True, THRESHOLD_IOU), (None, 3),
-            {"corner_targets": True}),
+            l, v, HEAT, True, THRESHOLD_IOU), (v, None, 3),
+            {"valid": v, "corner_targets": True}),
         "offset": (offset_map, lambda: gaussian.render_heatmap_plain(
-            l, v, HEAT, THRESHOLD_IOU, radius_fn=corner_threshold_radius,
-            position_offset=offset)[None], (offset, 1),
-            {"position_offset": offset}),
+            l, ov, HEAT, THRESHOLD_IOU, radius_fn=corner_threshold_radius,
+            position_offset=offset)[None], (ov, offset, 1),
+            {"valid": ov, "position_offset": offset}),
     }
 
 
@@ -1202,8 +1284,9 @@ def check_render_maps(name, l, v, offset):
     return err, three
 
 
-def time_render(l, v, offset):
-    """For each map set at these inputs: the kernel's device time by
+def time_render(l, v, offset, offset_valid):
+    """For each map set at these inputs (the offset set with
+    ``offset_valid``): the kernel's device time by
     ``torch.profiler`` (the wrapper as the batch transform calls it), the
     C entry point launched back to back from Python and timed by CUDA
     events (host-issued: a launch may take longer to issue than to run),
@@ -1212,14 +1295,15 @@ def time_render(l, v, offset):
     lib = gaussian.library()
     stream = torch.cuda.current_stream().cuda_stream
     result = {}
-    for set_name, (fn, plain, (offsets, maps), bound_args) in \
-            render_map_sets(l, v, offset).items():
+    for set_name, (fn, plain, (valid, offsets, maps), bound_args) in \
+            render_map_sets(l, v, offset, offset_valid).items():
         heat = torch.empty((maps, l.shape[0], HEAT, HEAT), device="cuda")
         offset_ptr = None if offsets is None else offsets.data_ptr()
+        valid_ptr = valid.data_ptr()
 
         def launch():
             return lib.render_heatmaps_f32(
-                l.data_ptr(), v.data_ptr(), offset_ptr, heat.data_ptr(),
+                l.data_ptr(), valid_ptr, offset_ptr, heat.data_ptr(),
                 l.shape[0], l.shape[1], HEAT, maps, THRESHOLD_IOU, stream)
 
         cuda_build.check(lib, launch(), "render_heatmaps_f32")
@@ -1230,7 +1314,7 @@ def time_render(l, v, offset):
             raise AssertionError("render {}: the wrapper launched {}, not "
                                  "one render kernel".format(set_name,
                                                             kernels))
-        bound_ms, bound_by = render_bound_ms(l, v, HEAT, **bound_args)
+        bound_ms, bound_by = render_bound_ms(l, size=HEAT, **bound_args)
         result[set_name] = {
             "maps": maps, "ms": kernels[names[0]]["ms"],
             "host_issued_event_ms": device_ms(launch, 500, warmup=10),
@@ -1317,24 +1401,57 @@ def check_render(archive: str):
             raise AssertionError("render: a corner in (-1, 0) is not "
                                  "stamped at 0")
     err = max(err, render_tile_edges(locs, valid))
+    check_legacy_targets(locs, valid)
     l, v = locs.cuda(), valid.cuda()
-    _, offset = gaussian.corner_offsets(l)
-    result, floor = time_render(l, v, offset.contiguous())
+    # the offset set at the legacy targets' br corner, as a legacy batch
+    # transform launches it
+    true, _, cmask = legacy_corners(l, v, HEAT)[1]
+    result, floor = time_render(l, v, (true - l[:, :, 0:2]).contiguous(),
+                                cmask)
     return {"map_sets": result, "floor_ms": floor, "max_abs_err": err}
 
 
+def check_legacy_targets(locs: torch.Tensor, valid: torch.Tensor) -> None:
+    """The legacy batch transform's targets (two launches of the offset
+    map set, at the legacy corners with their floor-based masks) on the
+    card: each heatmap equal to the bit to its plain version on the same
+    card tensors, and within 1e-6 of the CPU's with the same pixels at
+    1.0 (CUDA's and the CPU's exp round a last bit apart); the masks,
+    indices and offsets equal to the CPU's to the bit."""
+    l, v = locs.cuda(), valid.cuda()
+    got = legacy_targets(l, v, HEAT)
+    want = legacy_targets(locs, valid, HEAT)
+    for i in range(2, 7):
+        if not torch.equal(got[i].cpu(), want[i]):
+            raise AssertionError("legacy target {} differs from the CPU's"
+                                 .format(i))
+    for i, (true, _, mask) in enumerate(legacy_corners(l, v, HEAT)):
+        plain = gaussian.render_heatmap_plain(
+            l, mask, HEAT, THRESHOLD_IOU, radius_fn=corner_threshold_radius,
+            position_offset=true - l[:, :, 0:2])
+        if not torch.equal(got[i][:, 0], plain):
+            raise AssertionError("legacy heatmap {} differs from its plain "
+                                 "version on the card".format(i))
+        compare_heat(got[i][:, 0].cpu(), want[i][:, 0],
+                     "legacy heatmap {}".format(i))
+    log("render: the legacy targets at {} equal their plain versions to the "
+        "bit ({} objects paired, {} tl and {} br pixels at 1.0)".format(
+            tuple(locs.shape), int(want[2].sum()),
+            int((want[0] == 1.0).sum()), int((want[1] == 1.0).sum())))
+
+
 def render_entry(render):
-    """K1's line: its numbers are the center map set's (M = 1, what the
-    newest path that runs it launches), each map set's under
-    ``map_sets``."""
-    center = render["map_sets"]["center"]
+    """K1's line: its numbers are the offset map set's (M = 1 at the
+    legacy corners, what the newest path that runs it, legacy_full,
+    launches), each map set's under ``map_sets``."""
+    main = render["map_sets"]["offset"]
     return {
         "name": gaussian.KERNEL_NAME, "route": "cuda",
         "source": "scd_resnet_tpu_torch/csrc/render_heatmap.cu",
         "replaces": "scd_resnet_tpu/ops/pallas_kernels.py:77",
         "max_abs_err": render["max_abs_err"],
-        "ms": center["ms"], "plain_ms": center["plain_ms"],
-        "bound_ms": center["bound_ms"], "bound_by": center["bound_by"],
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None,
         "library_note": "no single PyTorch call renders the heatmap",
         "floor_ms": render["floor_ms"],
@@ -1343,7 +1460,7 @@ def render_entry(render):
     }
 
 
-# -- 8. training exp74, cpool_best and dcn_full -----------------------------------------
+# -- 8. training exp74, cpool_best, dcn_full, hourglass2_best, legacy_full ----------
 
 def write_config(path: str, values) -> str:
     with open(path, "w") as f:
@@ -1353,21 +1470,32 @@ def write_config(path: str, values) -> str:
 
 def expected_launches(config, steps: int, n_val: int):
     """What the train runs of ``config`` (a first run and its resume, each
-    rendering the validation set once) must launch, kernel by kernel."""
+    rendering the validation set once) must launch, kernel by kernel: the
+    render once a step and a validation chunk (the legacy targets twice);
+    the stem pool's backward once a step in a ResNet (the hourglass has
+    no stem pool); a corner-pool model's pools in every forward, again in
+    each step's recompute under remat (validation forwards record no
+    gradient and recompute nothing), and their backward once a step; the
+    DCN's gather likewise and its backward once a step."""
     chunks = 2 * math.ceil(n_val / VALIDATION_CHUNK)
+    arch = config["modelName"]
+    profile = get_model_profile(arch)
     expected = {name: 0 for name in cuda_build.LAUNCHES}
-    expected[gaussian.KERNEL_NAME] = steps + chunks  # every map set at once
-    expected[mp.KERNEL_NAME] = steps
+    expected[gaussian.KERNEL_NAME] = (steps + chunks) * (
+        2 if profile.corner_targets == "legacy" else 1)
+    if not issubclass(profile.model_cls, StackHourglass):
+        expected[mp.KERNEL_NAME] = steps
     batch = config["validationBatchSize"]
     per_validation = 1 + (1 if n_val <= batch else n_val // batch)
     forwards = steps + steps // config["validation"] * per_validation
-    if is_dcn(config["modelName"]):
-        expected[dcn.KERNEL_NAME] = forwards
+    recomputes = steps if config.get("remat") else 0
+    if is_dcn(arch):
+        expected[dcn.KERNEL_NAME] = forwards + recomputes
         expected[dcn.BWD_KERNEL_NAME] = steps
-    if config["modelName"].startswith("cornerCPool"):
-        for dim in cp.KERNEL_NAMES:
-            expected[cp.KERNEL_NAMES[dim]] = 2 * forwards
-            expected[cp.BWD_KERNEL_NAMES[dim]] = 2 * steps
+    pools = pool_launches_per_forward(arch)
+    for dim in cp.KERNEL_NAMES:
+        expected[cp.KERNEL_NAMES[dim]] = pools * (forwards + recomputes)
+        expected[cp.BWD_KERNEL_NAMES[dim]] = pools * steps
     return expected
 
 
@@ -1392,6 +1520,8 @@ def train_config(config: str, data_dir: str, work: str, metrics,
     results = os.path.join(work, "results")
 
     cuda_build.reset_launches()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     first = train_cli.main([write_config(os.path.join(work, "first.json"),
                                          values), "--device", device])
     evals = open(os.path.join(results, "evals.{}.txt".format(name))).read()
@@ -1409,6 +1539,8 @@ def train_config(config: str, data_dir: str, work: str, metrics,
         dict(values, currentIter=TRAIN_ITERS, iterations=RESUME_ITERS)),
         "--device", device])
     launches = dict(cuda_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1024 ** 3 \
+        if device == "cuda" else None
 
     rows = [np.loadtxt(os.path.join(results, "losses.{}.{}.txt".format(
         name, it)), delimiter=",", ndmin=2) for it in (TRAIN_ITERS,
@@ -1429,12 +1561,15 @@ def train_config(config: str, data_dir: str, work: str, metrics,
     expected = expected_launches(values, RESUME_ITERS, n_val)
     log("{}: {} + {} steps, losses finite, focal {:.4f} (first 10) -> "
         "{:.4f} (last 10); [It] at {}: {} {}; train clips/s {:.1f} and "
-        "{:.1f} (validation, snapshots and cuDNN autotuning included); "
+        "{:.1f}, {:.1f} ms a step in the resumed run (validation, "
+        "snapshots and cuDNN autotuning included); peak memory {} GB; "
         "launches {} (expected {})".format(
             arch, first["steps"], second["steps"], focal[:10].mean(),
             focal[-10:].mean(), TRAIN_ITERS, metrics[0],
             parse_metric_line(it_lines[-1], metrics[0]),
-            first["clips_per_s"], second["clips_per_s"], launches, expected))
+            first["clips_per_s"], second["clips_per_s"],
+            second["seconds"] * 1e3 / max(second["steps"], 1), peak_gb,
+            launches, expected))
     if launches != expected:
         raise AssertionError("{}: the kernels launched {}, expected {} ({} "
                              "train steps, {} validation clips)".format(
@@ -1445,7 +1580,8 @@ def train_config(config: str, data_dir: str, work: str, metrics,
             "seconds": [first["seconds"], second["seconds"]],
             "focal_first10": float(focal[:10].mean()),
             "focal_last10": float(focal[-10:].mean()),
-            "it_line": it_lines[-1].strip(), "launches": launches}
+            "it_line": it_lines[-1].strip(), "launches": launches,
+            "peak_memory_gb": peak_gb}
 
 
 # -- 9. one float32 step, card against CPU ------------------------------------------
@@ -1514,12 +1650,30 @@ def step_card_vs_cpu(config: str, work: str, probe=None, prepare=None):
             2, CLIP, factory.device))
         grad = factory.model.get_parameter(probe[0]).grad[probe[1]].cpu() \
             if probe else None
+        stats = {k: v.detach().cpu() for k, v in
+                 factory.model.state_dict().items()
+                 if k.endswith(("running_mean", "running_var",
+                                "num_batches_tracked"))}
         out[run] = (loss.item(), factory._last_batch[1],
-                    global_grad_norm(factory.model), grad)
-    targets = [0, 4, 5] if card.profile.corner_targets else [0]
+                    global_grad_norm(factory.model), grad, stats)
+    targets = {True: [0, 4, 5], "legacy": [0, 1]}.get(
+        card.profile.corner_targets, [0])
     heat_err = max(compare_heat(out["cuda"][1][i].cpu(), out["cpu"][1][i],
                                 "train-step target {}".format(i))
                    for i in targets)
+    # each BatchNorm moved once, as much on the card as on the CPU: a
+    # remat recompute must not update the statistics a second time
+    for key, want in out["cpu"][4].items():
+        got = out["cuda"][4][key]
+        if key.endswith("num_batches_tracked"):
+            if not (int(got) == int(want) == 1):
+                raise AssertionError("{}: {} is {} on the card, {} on the "
+                                     "CPU".format(config, key, int(got),
+                                                  int(want)))
+        elif not torch.allclose(got, want, rtol=1e-4, atol=1e-5):
+            raise AssertionError("{}: BatchNorm statistic {} differs by {}"
+                                 .format(config, key,
+                                         (got - want).abs().max().item()))
     loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
     norm_rel = abs(out["cuda"][2] - out["cpu"][2]) / out["cpu"][2]
     result = {"arch": card.config.modelName, "heat_max_abs": heat_err,
@@ -1603,7 +1757,9 @@ def main() -> int:
         served = [serve_model(arch, seed, slide, build_dir, gpu_line)
                   for arch, seed in (("cornerCPoolRes10", 10),
                                      ("centerOffsetRes10", 11),
-                                     ("centerOffsetRes10dcn", 12))]
+                                     ("centerOffsetRes10dcn", 12),
+                                     ("centerOffsetHourglass2", 13),
+                                     ("cornerLegacyHourglass", 14))]
         t0 = mark("serving", t0)
         finish_archive(writer, archive)
     finally:
@@ -1623,7 +1779,13 @@ def main() -> int:
                             ("boxAP50",)),
                train_config(DCN_FULL, data_dir,
                             os.path.join(build_dir, "dcn_full"),
-                            ("mIoU", "AP50", "avgS"))]
+                            ("mIoU", "AP50", "avgS")),
+               train_config(HOURGLASS2_BEST, data_dir,
+                            os.path.join(build_dir, "hourglass2_best"),
+                            ("mIoU", "AP50", "avgS")),
+               train_config(LEGACY_FULL, data_dir,
+                            os.path.join(build_dir, "legacy_full"),
+                            ("AP50", "mIoU"))]
     t0 = mark("training", t0)
     # 9. one float32 step on the card and on the CPU, for each model
     steps = [step_card_vs_cpu(EXP74, os.path.join(build_dir, "step_exp74")),
@@ -1634,16 +1796,34 @@ def main() -> int:
              step_card_vs_cpu(DCN_FULL, os.path.join(build_dir, "step_dcn"),
                               probe=("deconv_dcn.conv_offset_mask.weight",
                                      slice(0, 2 * 9)),
-                              prepare=fractional_offsets)]
+                              prepare=fractional_offsets),
+             step_card_vs_cpu(HOURGLASS2_BEST,
+                              os.path.join(build_dir, "step_hourglass2")),
+             step_card_vs_cpu(LEGACY_FULL, os.path.join(build_dir,
+                                                        "step_legacy"),
+                              probe=("tl.0.pool_block.branch1.conv.weight",
+                                     slice(None)))]
     mark("step_card_vs_cpu", t0)
 
     # 10. results: every path's counts, oldest first; each kernel's
     # launches are those of the newest path that runs it
     paths = {"serve_cornerCPoolRes10": served[0]["launches"],
              "serve_centerOffsetRes10dcn": served[2]["launches"],
+             "serve_cornerLegacyHourglass": served[4]["launches"],
              "train_exp74": trained[0]["launches"],
              "train_cpool_best": trained[1]["launches"],
-             "train_dcn_full": trained[2]["launches"]}
+             "train_dcn_full": trained[2]["launches"],
+             "train_hourglass2_best": trained[3]["launches"],
+             "train_legacy_full": trained[4]["launches"]}
+    # the render's map sets by the paths that launch them: M = 1 center
+    # (exp74, dcn_full, hourglass2_best), M = 3 (cpool_best), the offset
+    # set twice a batch transform (legacy_full)
+    for set_name, path in (("center", "train_hourglass2_best"),
+                           ("center+tl+br", "train_cpool_best"),
+                           ("offset", "train_legacy_full")):
+        render["map_sets"][set_name]["main_path"] = path
+        render["map_sets"][set_name]["launches"] = \
+            paths[path][gaussian.KERNEL_NAME]
     kernels = ([render_entry(render)]
                + pool_entries(cp.KERNEL_NAMES,
                               "scd_resnet_tpu/ops/pallas_kernels.py:260",

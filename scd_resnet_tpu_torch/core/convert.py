@@ -27,6 +27,24 @@ writes. ``cornerRes*`` and ``cornerCombinedRes*`` share that layout with
 their own heads (``heatmap``/``tl``/``br``, or one 3-channel
 ``heatmap``); ``cornerCPoolRes*`` nests the backbone under
 ``backbone.`` beside its center head and two corner-pool heads.
+
+The stacked hourglasses are walked along the port model the profile
+builds, so any geometry converts. flax numbers their recursive modules
+itself: in a ``Hourglass_k``, ``ResidualStack_0`` (up1),
+``ResidualStack_1`` (the downsampling stack), then ``Hourglass_0`` or, at
+the innermost level, ``ResidualStack_2``, then
+``ResidualStackReverted_0``; in a ``Residual``, ``Conv_0..2`` and
+``BatchNorm_0..2``, the third pair (the 1x1 skip) only where the stride
+or width changes. The stem is ``ConvBlock_0`` + ``Residual_0``, stack s's
+prediction conv ``ConvBlock_{s+1}``, its heads ``{head}_{s}``
+(``ConvBlock_0`` + ``Conv_0``), and between stacks s and s + 1 the
+shortcut ``Conv_{2s}``/``BatchNorm_{2s}``, the previous-prediction
+``Conv_{2s+1}``/``BatchNorm_{2s+1}`` and ``Residual_{s+1}``.
+``centerOffsetHourglass*`` nests all of it under ``StackHourglass_0``
+(the result is the dict ``export_center_net_hourglass`` writes);
+``cornerLegacyHourglass`` keeps it at the root, with ``tl_{s}``/``br_{s}``
+branches of ``CornerPoolBlock_0`` and the heads ``ConvBlock_{0,1,2}`` +
+``heat``/``tag``/``regr``.
 """
 
 from __future__ import annotations
@@ -35,6 +53,7 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from scd_resnet_tpu_torch.models.center_net_offset import CenterNetResidual
 from scd_resnet_tpu_torch.models.corner_net import (
@@ -42,7 +61,12 @@ from scd_resnet_tpu_torch.models.corner_net import (
     CornerNetCPoolResidual,
     CornerNetResidual,
 )
-from scd_resnet_tpu_torch.models.resnet import RESNET_SPEC
+from scd_resnet_tpu_torch.models.corner_net_legacy import (
+    BRANCH_HEADS,
+    CornerNetLegacy,
+)
+from scd_resnet_tpu_torch.models.hourglass import Hourglass, StackHourglass
+from scd_resnet_tpu_torch.models.resnet import RESNET_SPEC, Residual
 from scd_resnet_tpu_torch.train.registry import get_model_profile
 
 StateDict = Dict[str, torch.Tensor]
@@ -145,23 +169,95 @@ def _terminal_heads(root: _Writer, num_layers: int, heads) -> None:
         h.conv(head + ".2", "Conv_1", bias=True)
 
 
+def _pool_block(pb: _Writer, key: str) -> None:
+    """A ``CornerPoolBlock_0`` scope into ``{key}.*``."""
+    pb.conv_block(key + ".branch1", "ConvBlock_0")
+    pb.conv_block(key + ".branch2", "ConvBlock_1")
+    pb.conv(key + ".merge_conv", "Conv_0")
+    pb.bn(key + ".merge_bn", "BatchNorm_0")
+    pb.conv(key + ".skip_conv", "Conv_1")
+    pb.bn(key + ".skip_bn", "BatchNorm_1")
+    pb.conv_block(key + ".out", "ConvBlock_2")
+
+
 def _corner_cpool(root: _Writer, num_layers: int) -> None:
     _backbone(root.sub("ResNetBackbone_0"), "backbone.", num_layers)
     root.conv("heatmap.0", "Conv_0", bias=True)
     root.conv("heatmap.2", "Conv_1", bias=True)
     for head in ("tl_head", "br_head"):
         h = root.sub(head)
-        pb = h.sub("CornerPoolBlock_0")
-        key = head + ".pool_block"
-        pb.conv_block(key + ".branch1", "ConvBlock_0")
-        pb.conv_block(key + ".branch2", "ConvBlock_1")
-        pb.conv(key + ".merge_conv", "Conv_0")
-        pb.bn(key + ".merge_bn", "BatchNorm_0")
-        pb.conv(key + ".skip_conv", "Conv_1")
-        pb.bn(key + ".skip_bn", "BatchNorm_1")
-        pb.conv_block(key + ".out", "ConvBlock_2")
+        _pool_block(h.sub("CornerPoolBlock_0"), head + ".pool_block")
         h.conv(head + ".terminal.0", "Conv_0", bias=True)
         h.conv(head + ".terminal.2", "Conv_1", bias=True)
+
+
+def _residual(w: _Writer, key: str, module: Residual) -> None:
+    """A ``Residual_k`` scope into ``{key}.conv1/bn1/conv2/bn2[/skip]``."""
+    for j in (1, 2):
+        w.conv("{}.conv{}".format(key, j), "Conv_{}".format(j - 1))
+        w.bn("{}.bn{}".format(key, j), "BatchNorm_{}".format(j - 1))
+    if module.skip is not None:
+        w.conv(key + ".skip.0", "Conv_2")
+        w.bn(key + ".skip.1", "BatchNorm_2")
+
+
+def _residual_stack(w: _Writer, key: str, stack: nn.Sequential) -> None:
+    for i, module in enumerate(stack):
+        _residual(w.sub("Residual_{}".format(i)), "{}.{}".format(key, i),
+                  module)
+
+
+def _hourglass(w: _Writer, key: str, module: Hourglass) -> None:
+    _residual_stack(w.sub("ResidualStack_0"),
+                    key + ".preserveCurrentDimension",
+                    module.preserveCurrentDimension)
+    _residual_stack(w.sub("ResidualStack_1"), key + ".changeDimension",
+                    module.changeDimension)
+    inner = module.embeddedHourglass
+    if isinstance(inner, Hourglass):
+        _hourglass(w.sub("Hourglass_0"), key + ".embeddedHourglass", inner)
+    else:
+        _residual_stack(w.sub("ResidualStack_2"), key + ".embeddedHourglass",
+                        inner)
+    _residual_stack(w.sub("ResidualStackReverted_0"),
+                    key + ".changeDimensionBack", module.changeDimensionBack)
+
+
+def _block_head(w: _Writer, key: str, block: str, final: str) -> None:
+    """A ConvBlock(no BN) + 1x1 head: ``{block}/Conv_0`` -> ``.0.conv``,
+    ``final`` -> ``.1``."""
+    w.sub(block).conv(key + ".0.conv", "Conv_0", bias=True)
+    w.conv(key + ".1", final, bias=True)
+
+
+def _stacked(w: _Writer, model: StackHourglass) -> None:
+    w.conv_block("preprocess.0", "ConvBlock_0")
+    _residual(w.sub("Residual_0"), "preprocess.1", model.preprocess[1])
+    for s in range(model.stacks):
+        _hourglass(w.sub("Hourglass_{}".format(s)),
+                   "hourglassStack.{}".format(s), model.hourglassStack[s])
+        w.conv_block("redimConvolution.{}".format(s),
+                     "ConvBlock_{}".format(s + 1))
+        for head in model.terminal_names:
+            _block_head(w.sub("{}_{}".format(head, s)),
+                        "{}.{}".format(head, s), "ConvBlock_0", "Conv_0")
+        if isinstance(model, CornerNetLegacy):
+            for corner in ("tl", "br"):
+                b = w.sub("{}_{}".format(corner, s))
+                key = "{}.{}".format(corner, s)
+                _pool_block(b.sub("CornerPoolBlock_0"), key + ".pool_block")
+                for i, head in enumerate(BRANCH_HEADS):
+                    _block_head(b, "{}.{}".format(key, head),
+                                "ConvBlock_{}".format(i), head)
+        if s < model.stacks - 1:
+            for j, name in enumerate(("shortcutLayers",
+                                      "convPrevHourglass")):
+                w.conv("{}.{}.0".format(name, s), "Conv_{}".format(2 * s + j))
+                w.bn("{}.{}.1".format(name, s),
+                     "BatchNorm_{}".format(2 * s + j))
+            _residual(w.sub("Residual_{}".format(s + 1)),
+                      "interHourglassLayers.{}".format(s),
+                      model.interHourglassLayers[s])
 
 
 def state_dict_from_flax(arch: str, params: Mapping[str, Any],
@@ -171,7 +267,11 @@ def state_dict_from_flax(arch: str, params: Mapping[str, Any],
     profile = get_model_profile(arch)
     sd: StateDict = {}
     root = _Writer(sd, params, batch_stats)
-    if profile.model_cls is CornerNetCPoolResidual:
+    if issubclass(profile.model_cls, StackHourglass):
+        model = profile.build()
+        _stacked(root if isinstance(model, CornerNetLegacy)
+                 else root.sub("StackHourglass_0"), model)
+    elif profile.model_cls is CornerNetCPoolResidual:
         _corner_cpool(root, profile.num_layers)
     else:
         _terminal_heads(root, profile.num_layers,

@@ -10,7 +10,14 @@ Counterpart of ``scd_resnet_tpu/data/pipeline.augment_and_render_batch``
   (the corner families), the top-left and bottom-right corner heatmaps
   (corners at the center -/+ (|maj|, minL), the corner radius), all
   rendered by one launch of the K1 kernel
-  (``ops/gaussian.render_label_heatmaps``) on a CUDA tensor.
+  (``ops/gaussian.render_label_heatmaps``) on a CUDA tensor;
+- with ``corner_targets="legacy"`` (the cornerLegacy family) the original
+  CornerNet's targets instead: float corners at (center + offset / 4)
+  -/+ (|maj|, minL), their floors as the heatmap indices, the fractions
+  as the offset targets, and the tl and br heatmaps, each one launch of
+  K1's one-map offset set (``ops/gaussian.render_heatmap``) masked by the
+  floor-based bounds. The center map is not rendered: the JAX branch
+  drops it.
 
 The random draws are an argument (:class:`Draws`), not drawn inside: the
 trainer makes them from a per-step ``torch.Generator`` (:func:`draw`),
@@ -29,7 +36,8 @@ from scd_resnet_tpu_torch.ops.augment import (
     flip_locs_vertical,
     normalize,
 )
-from scd_resnet_tpu_torch.ops.gaussian import render_label_heatmaps
+from scd_resnet_tpu_torch.ops.gaussian import render_heatmap, render_label_heatmaps
+from scd_resnet_tpu_torch.ops.radius import corner_threshold_radius, sqrt_rn
 
 THRESHOLD_IOU = 0.5  # scdx16p100.py:52
 
@@ -90,11 +98,13 @@ def augment_and_render_batch(samples: torch.Tensor, locs: torch.Tensor,
     Returns ``xs`` (B, 1, S, S) and ``ys = [heat (B, 1, Hs, Hs), tag_mask
     (B, K) bool, regr (B, K, 6), indices (B, K) int64]``, the dataset
     contract (scdx16p100.py:363-379) in NCHW; with ``corner_targets``
-    ``ys`` adds ``tl`` and ``br`` (B, 1, Hs, Hs).
+    ``ys`` adds ``tl`` and ``br`` (B, 1, Hs, Hs); with ``"legacy"``, ``ys
+    = [tl heat, br heat (B, 1, Hs, Hs), mask (B, K) bool, tl regr, br
+    regr (B, K, 2), tl indices, br indices (B, K) int64]``.
     """
-    if corner_targets == "legacy":
-        raise NotImplementedError(
-            "legacy corner targets come with the cornerLegacy port (slice 7)")
+    if corner_targets not in (False, True, "legacy"):
+        raise ValueError("corner_targets is False, True or \"legacy\", not "
+                         "{!r}".format(corner_targets))
     b, k = locs.shape[:2]
     samples = samples.to(torch.float32)
     locs = locs.to(torch.float32)
@@ -115,6 +125,9 @@ def augment_and_render_batch(samples: torch.Tensor, locs: torch.Tensor,
         samples = samples * (1.0 + jitter_sv * draws.jitter)
         samples = samples + draws.noise * noise_sv
 
+    if corner_targets == "legacy":
+        return samples[:, None], legacy_targets(locs, present, heat_size)
+
     cx, cy = locs[:, :, 0], locs[:, :, 1]
     tag_mask = present & (cx >= 0) & (cx < heat_size) & (cy >= 0) \
         & (cy < heat_size)
@@ -130,3 +143,46 @@ def augment_and_render_batch(samples: torch.Tensor, locs: torch.Tensor,
     if corner_targets:
         ys += [maps[1][:, None], maps[2][:, None]]
     return samples[:, None], ys
+
+
+def legacy_corners(locs: torch.Tensor, present: torch.Tensor,
+                   heat_size: int):
+    """The cornerLegacy corners of (augmented) float32 loc records, in the
+    JAX branch's float32 operations and order
+    (``scd_resnet_tpu/data/pipeline.py:104-136``): for the tl and then the
+    br corner, ``(true, floor(true), mask)`` with ``true = (c + off / 4)
+    -/+ (|maj|, minL)`` (B, K, 2) and the mask of real objects whose
+    floor is on the map."""
+    maj_l = sqrt_rn(locs[:, :, 4] * locs[:, :, 4]
+                    + locs[:, :, 5] * locs[:, :, 5])
+    half = torch.stack([maj_l, locs[:, :, 6]], dim=-1)
+    center = locs[:, :, 0:2] + locs[:, :, 2:4] / 4.0
+    corners = []
+    for true in (center - half, center + half):
+        ints = torch.floor(true)
+        in_bounds = ((ints[..., 0] >= 0) & (ints[..., 0] < heat_size)
+                     & (ints[..., 1] >= 0) & (ints[..., 1] < heat_size))
+        corners.append((true, ints, present & in_bounds))
+    return corners
+
+
+def legacy_targets(locs: torch.Tensor, present: torch.Tensor,
+                   heat_size: int) -> List[torch.Tensor]:
+    """The cornerLegacy targets (:func:`legacy_corners`): each corner's
+    floor indexes the heatmap and ``true - floor(true)`` is its offset
+    target. Each heatmap is one launch of the render's offset set, handed
+    ``true - c`` as the offset (the kernel adds c back before its trunc)
+    and the floor-based mask as ``valid``, so a corner in (-1, 0) is not
+    stamped at 0."""
+    packs = []
+    for true, ints, cmask in legacy_corners(locs, present, heat_size):
+        inds = (ints[..., 1] * heat_size + ints[..., 0]).to(torch.int64)
+        inds = torch.where(cmask, inds, torch.zeros_like(inds))
+        heat = render_heatmap(locs, cmask, heat_size, THRESHOLD_IOU,
+                              radius_fn=corner_threshold_radius,
+                              position_offset=true - locs[:, :, 0:2])
+        packs.append((heat[:, None], true - ints, inds, cmask))
+    (tl_heat, tl_regr, tl_inds, tl_mask), \
+        (br_heat, br_regr, br_inds, br_mask) = packs
+    return [tl_heat, br_heat, tl_mask & br_mask, tl_regr, br_regr, tl_inds,
+            br_inds]

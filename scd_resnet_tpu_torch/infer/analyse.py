@@ -12,7 +12,8 @@ test.py:41-183) for the device-fused serving path:
 - the host thresholds at 0.3 after top-100, maps clip coordinates to
   slide pixels (``slide_x = clipX*384 - padLR + ctX*4 + offX``, toward-
   zero truncation), computes Rhr = (4 rad - 4 minL) / (2 * 4 minL), and
-  drops detections outside the slide;
+  drops detections outside the slide; the cornerLegacy contract's paired
+  boxes go to slide pixels unrounded and are kept by their centers;
 - ``fit_rhr`` fits the two-Gaussian mixture to the Rhr histogram.
 """
 
@@ -36,6 +37,7 @@ SCORE_THRESHOLD = 0.3
 CONTRACT_FIELDS = {
     "centerOffset": ("x", "y", "rhr"),
     "corner": ("x", "y", "score", "head"),
+    "cornerLegacy": ("tlx", "tly", "brx", "bry", "score"),
 }
 
 _CORNER_HEADS = ("ct", "tl", "br")
@@ -157,11 +159,34 @@ def stitch_corner_rows(rows: np.ndarray, clip_h: int, clip_v: int,
     return detections
 
 
+def stitch_legacy_boxes(rows: np.ndarray, clip_h: int, clip_v: int,
+                        pad_lr: int, pad_tb: int,
+                        bounds: Optional[Tuple[int, int]] = None
+                        ) -> List[List[float]]:
+    """cornerLegacy contract (N, 1000, 8) paired boxes -> ``[tlx, tly,
+    brx, bry, score]`` in slide pixels, float64; rejected pairs (score -1)
+    fall to the threshold, and the bounds keep boxes whose center is in
+    the slide (``scd_resnet_tpu/infer/analyse.py:350-375``)."""
+    rows = np.asarray(rows, np.float64)[: clip_h * clip_v]
+    grid_x, grid_y = _clip_grid(clip_h, clip_v)
+    tlx = grid_x * STRIDE - pad_lr + rows[:, :, 0] * 4
+    tly = grid_y * STRIDE - pad_tb + rows[:, :, 1] * 4
+    brx = grid_x * STRIDE - pad_lr + rows[:, :, 2] * 4
+    bry = grid_y * STRIDE - pad_tb + rows[:, :, 3] * 4
+    scores = rows[:, :, 4]
+    keep = _bounds_keep(scores > SCORE_THRESHOLD, (tlx + brx) / 2,
+                        (tly + bry) / 2, bounds)
+    return [
+        [float(a), float(b), float(c), float(d), float(s)]
+        for a, b, c, d, s in zip(tlx[keep], tly[keep], brx[keep],
+                                 bry[keep], scores[keep])]
+
+
 def stitch_any(rows: np.ndarray, contract: str, clip_h: int, clip_v: int,
                pad_lr: int, pad_tb: int,
                bounds: Optional[Tuple[int, int]] = None) -> List[List[float]]:
-    fn = {"centerOffset": stitch_rows, "corner": stitch_corner_rows}.get(
-        contract)
+    fn = {"centerOffset": stitch_rows, "corner": stitch_corner_rows,
+          "cornerLegacy": stitch_legacy_boxes}.get(contract)
     if fn is None:
         raise KeyError("unknown wrapper contract '{}'".format(contract))
     return fn(rows, clip_h, clip_v, pad_lr, pad_tb, bounds)
@@ -191,13 +216,17 @@ def dedupe_detections(detections: List[List[float]],
 def dedupe_contract(detections: List[List[float]], radius: float,
                     contract: str) -> List[List[float]]:
     """Corner peaks dedupe within each head (a tl peak never suppresses a
-    ct peak); point contracts on (x, y)."""
+    ct peak); legacy boxes on their centers; point contracts on (x, y)."""
     if contract == "corner":
         out: List[List[float]] = []
         for head in _CORNER_HEADS:
             out.extend(dedupe_detections(
                 [d for d in detections if d[3] == head], radius))
         return out
+    if contract == "cornerLegacy":
+        centered = [[(d[0] + d[2]) / 2, (d[1] + d[3]) / 2, d]
+                    for d in detections]
+        return [c[2] for c in dedupe_detections(centered, radius)]
     return dedupe_detections(detections, radius)
 
 

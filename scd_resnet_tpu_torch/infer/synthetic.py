@@ -15,6 +15,11 @@ final 1x1 conv made zero-mean over its inputs and rescaled on the
 caller's clips, output channel by output channel: each channel's logits
 get standard deviation 2 and their 99.7th percentile sits at the 0.3
 serving threshold, which leaves a few dozen distinct peaks per clip.
+The legacy CornerNet pairs its corners by their tags (at most 1 apart)
+and offsets, which random weights spread far enough to reject every
+pair: its tag and offset heads are made zero-mean the same way and
+rescaled to standard deviation 0.5 about 0 (tags) and 0.25 about 0.5
+(offsets).
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 from torch import nn
 
 from scd_resnet_tpu_torch.infer.analyse import SCORE_THRESHOLD
+from scd_resnet_tpu_torch.models.corner_net_legacy import CornerBranch
 from scd_resnet_tpu_torch.models.deformable import DCN
 from scd_resnet_tpu_torch.models.resnet import TerminalHead
 from scd_resnet_tpu_torch.train.registry import get_model_profile
@@ -75,28 +81,39 @@ def seeded_model(arch: str, seed: int, clips: torch.Tensor) -> nn.Module:
                  and m.spec.final_bias is not None]
         if not heads:
             raise ValueError("{} has no heat head to calibrate".format(arch))
-        for head in heads:
+        # head -> (standard deviation, mean) of its calibrated outputs
+        spreads = {}
+        for branch in model.modules():
+            if isinstance(branch, CornerBranch):
+                spreads[id(branch.tag)] = (branch.tag, 0.5, 0.0)
+                spreads[id(branch.regr)] = (branch.regr, 0.25, 0.5)
+        calibrated = heads + [head for head, _, _ in spreads.values()]
+        for head in calibrated:
             head[-1].weight.sub_(head[-1].weight.mean(dim=1, keepdim=True))
             head[-1].bias.zero_()
         model = model.to(clips.device).eval()
         logits = {}
         hooks = [head.register_forward_hook(
             lambda m, args, out: logits.__setitem__(id(m), out))
-            for head in heads]
+            for head in calibrated]
         try:
             with torch.inference_mode():
                 model(clips)
         finally:
             for hook in hooks:
                 hook.remove()
-        for head in heads:
+        for head in calibrated:
             conv = head[-1]
             z = logits[id(head)].double().transpose(0, 1).flatten(1)
             for channel, zc in enumerate(z):
-                scale = 2.0 / zc.std().item()
-                q = torch.quantile(zc, 0.997).item()
+                if id(head) in spreads:
+                    _, std, mean = spreads[id(head)]
+                    scale = std / zc.std().item()
+                    bias = mean - scale * zc.mean().item()
+                else:
+                    scale = 2.0 / zc.std().item()
+                    bias = (math.log(SCORE_THRESHOLD / (1 - SCORE_THRESHOLD))
+                            - scale * torch.quantile(zc, 0.997).item())
                 conv.weight[channel].mul_(scale)
-                conv.bias[channel].fill_(
-                    math.log(SCORE_THRESHOLD / (1 - SCORE_THRESHOLD))
-                    - scale * q)
+                conv.bias[channel].fill_(bias)
     return model

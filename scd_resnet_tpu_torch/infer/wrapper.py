@@ -7,7 +7,10 @@ contracts (``CONTRACTS``):
   majY, minL, rad, offX, offY]`` (reference
   trainer/wrappers/centerOffsetResidual.py:5-23, test.py:103);
 - ``corner``: (12, B, K) ``[ctS, ctI, ctY, ctX, tlS, tlI, tlY, tlX,
-  brS, brI, brY, brX]`` (cornerNet.py:272-304).
+  brS, brI, brY, brX]`` (cornerNet.py:272-304);
+- ``cornerLegacy``: batch-major (B, 1000, 8) paired boxes ``[tlX, tlY,
+  brX, brY, score, tlScore, brScore, category]``, rejected pairs at score
+  -1 (cornerNetLegacy.py:332-446).
 
 A wrapper takes an NCHW float32 batch (B, 1, 512, 512) on the model's
 device and returns the stacked rows there, computed under
@@ -31,6 +34,8 @@ CONTRACTS = {
                      "minL", "rad", "offX", "offY"],
     "corner": ["ctScores", "ctInds", "ctY", "ctX", "tlScores", "tlInds",
                "tlY", "tlX", "brScores", "brInds", "brY", "brX"],
+    "cornerLegacy": ["(B, 1000, 8): tlX, tlY, brX, brY, score, tlScore, "
+                     "brScore, category"],
 }
 
 
@@ -60,6 +65,11 @@ def make_wrapper(model: nn.Module, family: str = "centerOffset") -> Callable:
         def stack(out):
             return torch.stack([r.float() for r in decode_corner_net(
                 out, combined=combined)[:12]])
+
+    elif family == "cornerLegacy":
+        from scd_resnet_tpu_torch.models.corner_net_legacy import (
+            decode_corner_net_legacy as stack,
+        )
 
     else:
         raise KeyError("unknown wrapper family '{}'; known: {}".format(

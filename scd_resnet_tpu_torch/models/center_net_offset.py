@@ -9,6 +9,10 @@ backbone, so its state dict carries the reference's own names
 (``preprocess.*``, ``layer{i}.{j}.*``, ``deconvolutionLayers.*``,
 ``heatmap/regr/offset.{0,2}.*``) and reference-trained ``.pth`` files
 load with ``strict=True``.
+
+``CenterNetHourglass`` is the stacked-hourglass center detector
+(centerNetOffset.py:78-101) with the same heads on every stack; the
+loss averages over the stacks and decode reads the last.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from scd_resnet_tpu_torch.evaluations.detection import (
     orthogonality,
 )
 
+from scd_resnet_tpu_torch.models.hourglass import StackHourglass
 from scd_resnet_tpu_torch.models.resnet import (
     DEFAULT_DIMENSIONS,
     ResNetBackbone,
@@ -64,6 +69,35 @@ class CenterNetResidual(ResNetBackbone):
                  terminal_hidden: int = 128, dcn: bool = False):
         super().__init__(num_layers, _terminals(terminal_hidden), dims,
                          deconv_dcn=dcn)
+
+
+#: The production hourglass geometry (centerNetOffset.py:80-101; the JAX
+#: package's ``HOURGLASS_*`` constants)
+HOURGLASS_ITERATIONS = 5
+HOURGLASS_DIMENSIONS = (128, 128, 192, 192, 192, 256)
+HOURGLASS_MODULES = (2, 2, 2, 2, 2, 4)
+HOURGLASS_PREDICTION_DIM = 256
+HOURGLASS_TERMINALS = (
+    ("heatmap", CLASS_DIMENSION, -2.19),
+    ("regr", 4, None),
+    ("offset", 2, None),
+)
+
+
+class CenterNetHourglass(StackHourglass):
+    """Stacked-hourglass center detector (centerNetOffset.py:78-101):
+    stride-2 downsampling, heads heatmap(1)/regr(4)/offset(2) on every
+    stack. The geometry defaults to the production constants; the tests
+    build it smaller."""
+
+    def __init__(self, stacks: int = 1, remat: bool = False,
+                 iterations: int = HOURGLASS_ITERATIONS,
+                 dimensions: Sequence[int] = HOURGLASS_DIMENSIONS,
+                 modules: Sequence[int] = HOURGLASS_MODULES,
+                 prediction_dim: int = HOURGLASS_PREDICTION_DIM):
+        super().__init__(iterations, stacks, dimensions, modules,
+                         prediction_dim, HOURGLASS_TERMINALS,
+                         pool_downsample=False, remat=remat)
 
 
 def decode_center_net(out_dict: Dict[str, torch.Tensor], k: int = 100,

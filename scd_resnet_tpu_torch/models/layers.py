@@ -1,7 +1,12 @@
-"""Building blocks: BatchNorm, Conv+BN+ReLU, the 7x7/s2 stem.
+"""Building blocks: BatchNorm, Conv+BN+ReLU, the 7x7/s2 stem, the 2x2
+max pool, and activation rematerialisation.
 
 Counterpart of ``scd_resnet_tpu/models/layers.py``, NCHW. The stem's max
 pool takes its backward from the port's kernel (``ops/max_pool.py``).
+:func:`checkpointed` is the counterpart of flax's ``nn.remat``: a
+module's activations are recomputed in the backward instead of stored,
+and the recompute leaves the BatchNorm statistics alone, as flax drops
+the recompute's state updates.
 In eval mode
 BatchNorm normalises with its running statistics exactly as flax's
 ``use_running_average=True`` does (eps 1e-5). In training mode it keeps
@@ -13,14 +18,49 @@ it is that plain conv, with the same kernel.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from scd_resnet_tpu_torch.ops.max_pool import max_pool_3x3_s2
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch convention; flax's 0.9
+# set on the thread that recomputes a checkpointed forward (the autograd
+# engine's thread for CUDA tensors)
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """While active on this thread, training-mode BatchNorms normalise as
+    usual but leave their running statistics and ``num_batches_tracked``
+    alone."""
+    before = getattr(_RECOMPUTE, "active", False)
+    _RECOMPUTE.active = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.active = before
+
+
+def checkpointed(fn, *args, enabled: bool = True):
+    """``fn(*args)`` with its activations recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant), the recompute under
+    :func:`recomputing`, so each BatchNorm's statistics move once a step,
+    as under flax's ``nn.remat``. A plain call when not ``enabled`` or
+    when no gradient is recorded (validation, serving). The models draw
+    no random numbers, so no RNG state is stashed."""
+    if not (enabled and torch.is_grad_enabled()):
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          recomputing()))
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -39,7 +79,8 @@ class BatchNorm(nn.BatchNorm2d):
 
     The batch moments come from the same fused ``F.batch_norm`` call that
     normalises the batch (into scratch buffers, momentum 1); the unbiased
-    variance is then scaled by (n - 1) / n."""
+    variance is then scaled by (n - 1) / n. Under :func:`recomputing`
+    the statistics are not touched."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -48,6 +89,8 @@ class BatchNorm(nn.BatchNorm2d):
         var = torch.zeros_like(self.running_var)
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
                          self.eps)
+        if getattr(_RECOMPUTE, "active", False):
+            return y
         n = x.numel() // x.shape[1]
         with torch.no_grad():  # mean and var are saved for the backward
             self.running_mean.mul_(1.0 - self.momentum).add_(
@@ -90,6 +133,12 @@ class ConvBlock(nn.Module):
         if self.bn is not None:
             x = self.bn(x)
         return torch.relu(x)
+
+
+def max_pool_2x2_s2(x: torch.Tensor) -> torch.Tensor:
+    """2x2/s2 max pool, ``nn.MaxPool2d(2, 2)`` (hourglass.py:46; the JAX
+    package's reduce-window, no Pallas kernel)."""
+    return F.max_pool2d(x, 2, 2)
 
 
 class StemMaxPool(nn.Module):

@@ -16,6 +16,9 @@ flipped spatially and its axes swapped (``core/convert.py``).
 at the S/32 map, as the JAX backbone's ``deconv_dcn`` does (l.234-242);
 its modules are ``deconv_dcn`` and ``deconv_dcn_bn``, and a backbone
 without it has the same state dict as before.
+
+``Residual`` is the pre-ResNet block of the stacked hourglass
+(``models/hourglass.py``), and ``TerminalHead(block=True)`` its heads.
 """
 
 from __future__ import annotations
@@ -27,9 +30,36 @@ import torch
 from torch import nn
 
 from scd_resnet_tpu_torch.models.deformable import DCN, lecun_normal_
-from scd_resnet_tpu_torch.models.layers import batch_norm, conv1x1, conv3x3, stem
+from scd_resnet_tpu_torch.models.layers import (
+    ConvBlock,
+    batch_norm,
+    conv1x1,
+    conv3x3,
+    stem,
+)
 
 DEFAULT_DIMENSIONS = (64, 64, 128, 256, 512, 256, 256, 256)
+
+
+class Residual(nn.Module):
+    """Pre-ResNet residual block (residuals.py:34-79): 3x3(stride) + BN +
+    ReLU, 3x3 + BN, plus the input, or a 1x1(stride) conv + BN of it when
+    the stride or the width changes, then ReLU. The reference's torch
+    names ``conv1/bn1/conv2/bn2/skip.{0,1}``."""
+
+    def __init__(self, in_features: int, features: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = conv3x3(in_features, features, stride)
+        self.bn1 = batch_norm(features)
+        self.conv2 = conv3x3(features, features)
+        self.bn2 = batch_norm(features)
+        self.skip = _projection(in_features, features, stride) \
+            if stride != 1 or in_features != features else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        return torch.relu(y + (x if self.skip is None else self.skip(x)))
 
 
 class BasicBlock(nn.Module):
@@ -116,11 +146,18 @@ class TerminalSpec:
 
 class TerminalHead(nn.Sequential):
     """Conv3x3(hidden, bias) + ReLU + Conv1x1(out, bias) — indices 0/2,
-    the reference's ``{head}.{0,2}`` names. The final conv runs in
-    float32 (the JAX head upcasts its input there)."""
+    the reference's ``{head}.{0,2}`` names; ``block=True`` is the
+    hourglass layout of the same head, ConvBlock(hidden, no BN) +
+    Conv1x1 at indices 0 (``.0.conv``) and 1 (stackHourglass.py's
+    ``convolutionConv1x1``). The final conv runs in float32 (the JAX head
+    upcasts its input there)."""
 
-    def __init__(self, in_features: int, spec: TerminalSpec):
-        if spec.hidden > 0:
+    def __init__(self, in_features: int, spec: TerminalSpec,
+                 block: bool = False):
+        if block:
+            layers = [ConvBlock(in_features, spec.hidden, with_bn=False),
+                      conv1x1(spec.hidden, spec.out_features, bias=True)]
+        elif spec.hidden > 0:
             layers = [conv3x3(in_features, spec.hidden, bias=True), nn.ReLU(),
                       conv1x1(spec.hidden, spec.out_features, bias=True)]
         else:
@@ -137,9 +174,10 @@ class TerminalHead(nn.Sequential):
         for layer in body:
             x = layer(x)
         # float32 even under autocast: the JAX head casts its input up and
-        # keeps the final conv's dtype at float32
+        # keeps the final conv's dtype at float32; a float64 model computes
+        # it in float64 from that float32 input, as the JAX head promotes
         with torch.autocast(x.device.type, enabled=False):
-            return final(x.float())
+            return final(x.float().to(final.weight.dtype))
 
 
 class ResNetBackbone(nn.Module):

@@ -2,8 +2,8 @@
 
 Counterpart of ``scd_resnet_tpu/ops/losses.py`` (reference
 models/losses/focal.py:25-53, regression.py:28-44), as masked sums with
-no boolean indexing. Heatmaps are NCHW here; the sums do not care. The
-associative-embedding loss comes with corner training.
+no boolean indexing, and the associative-embedding pull/push loss
+(embeddings.py:32-77). Heatmaps are NCHW here; the sums do not care.
 """
 
 from __future__ import annotations
@@ -57,3 +57,32 @@ def smooth_l1_loss_mask(regression: torch.Tensor, ground_truth: torch.Tensor,
     d = (regression - ground_truth).abs()
     err = torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
     return _masked_regression(err, mask)
+
+
+def embedding_loss(tag_tl: torch.Tensor, tag_br: torch.Tensor,
+                   mask: torch.Tensor):
+    """Associative-embedding pull/push loss for corner pairing
+    (embeddings.py:32-77) on (B, K) or (B, K, 1) tags gathered at the
+    ground-truth corners and the (B, K) tag mask: the pull draws each
+    pair's tags to their mean, the push drives the means of different
+    objects at least 1 apart over the (B, K, K) pair grid. Returns
+    ``(pull, push)``."""
+    tag_tl = tag_tl.to(torch.float32).reshape(mask.shape)
+    tag_br = tag_br.to(torch.float32).reshape(mask.shape)
+    maskf = mask.to(torch.float32)
+
+    num_objs = maskf.sum(dim=1, keepdim=True)  # (B, 1)
+    tag_mean = (tag_tl + tag_br) / 2.0
+    pull_tl = ((tag_tl - tag_mean) * (tag_tl - tag_mean)
+               / (num_objs + 1e-4) * maskf).sum()
+    pull_br = ((tag_br - tag_mean) * (tag_br - tag_mean)
+               / (num_objs + 1e-4) * maskf).sum()
+
+    pair_mask = maskf[:, None, :] * maskf[:, :, None]  # (B, K, K)
+    n = num_objs[:, :, None]  # (B, 1, 1)
+    n_sq = (n - 1.0) * n
+    dist = tag_mean[:, None, :] - tag_mean[:, :, None]
+    dist = torch.clamp(1.0 - dist.abs(), min=0.0)
+    dist = dist - 1.0 / (n + 1e-4)
+    dist = dist / (n_sq + 1e-4)
+    return pull_tl + pull_br, (dist * pair_mask).sum()

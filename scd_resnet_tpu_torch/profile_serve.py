@@ -1,9 +1,10 @@
 """Where a served slide's time goes on the card.
 
-    python -m scd_resnet_tpu_torch.profile_serve [--requests 5]
+    python -m scd_resnet_tpu_torch.profile_serve [--requests 5] [--arch A ...]
 
-For ``cornerCPoolRes10``, ``centerOffsetRes10`` and
-``centerOffsetRes10dcn`` at full width (seeded
+For ``cornerCPoolRes10``, ``centerOffsetRes10``,
+``centerOffsetRes10dcn``, ``centerOffsetHourglass2`` and
+``cornerLegacyHourglass`` (or the ``--arch`` named) at full width (seeded
 weights, ``infer/synthetic.py``) on a seeded 3092x2056 slide (48 clips),
 after two warm-up requests, it prints one JSON line per model with:
 
@@ -14,7 +15,12 @@ after two warm-up requests, it prints one JSON line per model with:
   forward, decode (wrapper minus forward), readback, stitch;
 - ``kernels``: device time per request by kernel (``torch.profiler``
   over ``--requests`` requests), the largest first, and
-  ``device_busy_share``: summed kernel time over the profiled wall time.
+  ``device_busy_share``: summed kernel time over the profiled wall time;
+- ``peak_memory_gb``: ``torch.cuda.max_memory_allocated`` over the
+  timed requests and phases;
+- ``forward_gflop_per_clip``: the model's forward operations on one
+  clip, counted by ``torch.utils.flop_counter`` (convolutions and
+  products; the port's own kernels are not counted).
 
 Needs a CUDA card; float32 with TF32 off and deterministic cuDNN, as in
 serving.
@@ -29,6 +35,7 @@ import time
 from typing import Callable, Dict
 
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from scd_resnet_tpu_torch.core.device import reproducible_float32, resolve_device
 from scd_resnet_tpu_torch.infer.analyse import (
@@ -44,7 +51,8 @@ from scd_resnet_tpu_torch.train.registry import get_model_profile
 SLIDE_W, SLIDE_H = 3092, 2056
 # arch -> seed
 ARCHS = {"cornerCPoolRes10": 10, "centerOffsetRes10": 11,
-         "centerOffsetRes10dcn": 12}
+         "centerOffsetRes10dcn": 12, "centerOffsetHourglass2": 13,
+         "cornerLegacyHourglass": 14}
 
 
 def device_ms(fn: Callable[[], object], n: int, warmup: int = 0) -> float:
@@ -74,12 +82,16 @@ def profile_arch(arch: str, seed: int, slide, n: int) -> Dict:
     for _ in range(2):
         analyse(slide)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
     t0 = time.perf_counter()
     for _ in range(n):
         detections = analyse(slide)
     e2e_ms = (time.perf_counter() - t0) * 1e3 / n
 
+    counter = FlopCounterMode(display=False)
+    with counter, torch.inference_mode():
+        model(clips[:1])
     gray_dev = gray.to(device)
     rows = wrapper(clips)
     with torch.inference_mode():
@@ -119,12 +131,16 @@ def profile_arch(arch: str, seed: int, slide, n: int) -> Dict:
             "detections": len(detections), "e2e_ms": e2e_ms,
             "phases_ms": phases,
             "device_busy_share": busy_ms / window_ms if window_ms else None,
-            "kernels": kernels[:15]}
+            "kernels": kernels[:15],
+            "forward_gflop_per_clip": counter.get_total_flops() / 1e9,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1024 ** 3}
 
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--requests", type=int, default=5)
+    parser.add_argument("--arch", nargs="+", choices=sorted(ARCHS),
+                        default=list(ARCHS), help="the models to profile")
     args = parser.parse_args(argv)
     resolve_device("cuda")
     reproducible_float32()
@@ -132,8 +148,8 @@ def main(argv=None) -> None:
                            "--format=csv,noheader"], check=True,
                           capture_output=True, text=True).stdout.strip()
     slide = synthetic_slide(SLIDE_H, SLIDE_W, seed=2056)
-    for arch, seed in ARCHS.items():
-        result = profile_arch(arch, seed, slide, args.requests)
+    for arch in args.arch:
+        result = profile_arch(arch, ARCHS[arch], slide, args.requests)
         result["card"] = card
         print(json.dumps(result), flush=True)
 

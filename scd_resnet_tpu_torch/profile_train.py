@@ -5,8 +5,10 @@
 
 Trains the configuration's model under its settings (``configs/exp74.json``,
 ``centerOffsetRes10``, by default; ``configs/cpool_best.json`` trains
-``cornerCPoolRes10`` and ``configs/dcn_full.json``
-``centerOffsetRes10dcn``; all 512x512 clips, batch 32, bf16 autocast, Adam)
+``cornerCPoolRes10``, ``configs/dcn_full.json`` ``centerOffsetRes10dcn``,
+``configs/hourglass2_best.json`` ``centerOffsetHourglass2`` and
+``configs/legacy_full.json`` ``cornerLegacyHourglass`` with remat; all
+512x512 clips, batch 32, bf16 autocast, Adam)
 on the seeded synthetic stand-in for the ``scdx16p100`` archive
 (``SYNTHETIC_ARCHIVE``, 256 clips; written to ``build/profile_train/``
 unless ``--archive`` names a copy, such as the one ``chip_smoke.py``
@@ -21,8 +23,9 @@ JSON line:
   augment+render (the batch transform, heatmaps by the render kernel),
   render (the kernel alone: one launch of every label map the batch
   transform renders, the center map and for a corner model the tl and
-  br maps), forward (training mode, autocast), and
-  forward+loss+backward;
+  br maps; for the legacy model its two launches of the offset map
+  set, tl and br), forward (training mode, autocast), and
+  forward+loss+backward (with the configuration's remat);
 - ``kernels``: device time per step by kernel name (``torch.profiler``
   over ``--steps`` steps), the largest first, ``device_busy_share``
   (summed kernel time over the profiled wall time), the port's own
@@ -49,10 +52,16 @@ import torch
 
 from scd_resnet_tpu_torch.core.config import Configuration
 from scd_resnet_tpu_torch.core.device import resolve_device, training_backends
-from scd_resnet_tpu_torch.data.pipeline import augment_and_render_batch
+from scd_resnet_tpu_torch.data.pipeline import (
+    THRESHOLD_IOU,
+    augment_and_render_batch,
+    legacy_corners,
+)
 from scd_resnet_tpu_torch.data.synthetic import make_archive
 from scd_resnet_tpu_torch.models.center_net_offset import as_stack_list
-from scd_resnet_tpu_torch.ops.gaussian import render_label_heatmaps
+from scd_resnet_tpu_torch.models.layers import checkpointed
+from scd_resnet_tpu_torch.ops.gaussian import render_heatmap, render_label_heatmaps
+from scd_resnet_tpu_torch.ops.radius import corner_threshold_radius
 from scd_resnet_tpu_torch.profile_serve import device_ms
 from scd_resnet_tpu_torch.train.factory import NetworkFactory
 
@@ -60,6 +69,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXP74 = os.path.join(REPO, "configs", "exp74.json")
 CPOOL_BEST = os.path.join(REPO, "configs", "cpool_best.json")
 DCN_FULL = os.path.join(REPO, "configs", "dcn_full.json")
+HOURGLASS2_BEST = os.path.join(REPO, "configs", "hourglass2_best.json")
+LEGACY_FULL = os.path.join(REPO, "configs", "legacy_full.json")
 # the synthetic stand-in for the scdx16p100 archive of the configurations
 # (``make_archive``'s arguments): 2 x 128 clips of 512^2, half of them
 # validation
@@ -131,10 +142,24 @@ def profile(factory: NetworkFactory, steps: int) -> Dict:
                < gathered[2][:, None])
     model, autocast = factory.model, factory.autocast
     model.train()
+    if corner_targets == "legacy":  # the two offset-set launches
+        maps = [(mask, true - locs[:, :, 0:2]) for true, _, mask in
+                legacy_corners(locs, present, factory.heat_size)]
+
+        def render():
+            return [render_heatmap(locs, mask, factory.heat_size,
+                                   THRESHOLD_IOU,
+                                   radius_fn=corner_threshold_radius,
+                                   position_offset=offset)
+                    for mask, offset in maps]
+    else:
+        def render():
+            return render_label_heatmaps(locs, present, factory.heat_size,
+                                         bool(corner_targets))
 
     def forward():
         with torch.autocast("cuda", dtype=torch.bfloat16, enabled=autocast):
-            return model(xs)
+            return checkpointed(model, xs, enabled=factory.remat_forward)
 
     def forward_backward():
         model.zero_grad(set_to_none=True)
@@ -148,9 +173,7 @@ def profile(factory: NetworkFactory, steps: int) -> Dict:
         "augment_render": device_ms(lambda: augment_and_render_batch(
             *gathered, factory.heat_size, draws=draws,
             corner_targets=corner_targets), steps, warmup=2),
-        "render_kernel": device_ms(lambda: render_label_heatmaps(
-            locs, present, factory.heat_size, bool(corner_targets)),
-            steps, warmup=2),
+        "render_kernel": device_ms(render, steps, warmup=2),
         "forward": device_ms(forward, steps, warmup=2),
         "forward_loss_backward": device_ms(forward_backward, steps,
                                            warmup=2),

@@ -7,10 +7,11 @@ taken (orthogonality NaN-filtered), AP computed at 0.3/0.5/0.7/0.9, and
 the ``[mIoU] ... [avgS]`` line formatted exactly as the reference appends
 it to ``evals.{trainName}.txt`` (``factory.parse_metric_line`` reads it);
 and for the corner families: peak AP50/AP75 per head and box AP50, the
-``[heatPeakAP50] ... [boxAP50]`` line.
+``[heatPeakAP50] ... [boxAP50]`` line; and for the cornerLegacy family the
+``[mIoU] ... [AP50]`` line of its embedding-paired boxes.
 
-Inputs are ``center_net_evaluation``'s or ``corner_net_evaluation``'s
-dicts, as tensors or numpy.
+Inputs are ``center_net_evaluation``'s, ``corner_net_evaluation``'s or
+``corner_net_legacy_evaluation``'s dicts, as tensors or numpy.
 """
 
 from __future__ import annotations
@@ -143,3 +144,25 @@ def expression_corner_net(batches: List[Dict]) -> str:
             *(format(e[k] * 100, "-5.2f")
               for k in ("heatAP50", "heatAP75", "tlAP50", "tlAP75",
                         "brAP50", "brAP75", "boxAP50"))))
+
+
+def expression_corner_net_legacy(batches: List[Dict]) -> str:
+    """The cornerLegacy report line (``scd_resnet_tpu/models/
+    corner_net_legacy.expression_corner_net_legacy``): the mean IoU of
+    the matched paired boxes and their AP50, ``bestSnapshotMetric:
+    "AP50"``'s source."""
+    ious, scores = [], []
+    obj_num = 0.0
+    for batch in batches:
+        obj_num += float(_np(batch["objs"]).sum())
+        vals, svals, mask = batch["iouscore"]
+        ious.append(_masked(vals, mask))
+        scores.append(_masked(svals, mask))
+    ious = np.concatenate(ious) if ious else np.zeros(0)
+    scores = np.concatenate(scores) if scores else np.zeros(0)
+    miou = float(ious.mean()) if ious.size else 0.0
+    denom = max(obj_num, float(len(ious)))
+    ap50 = average_precision_all(
+        average_precision_plots(ious, scores, denom, 0.5))
+    return "[mIoU] {}    [AP50] {}".format(
+        format(miou * 100, "-10.8f"), format(ap50 * 100, "-5.2f"))

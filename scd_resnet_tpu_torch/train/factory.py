@@ -1,18 +1,24 @@
 """The trainer: one train step on one card, and the schedule loop.
 
 Counterpart of ``scd_resnet_tpu/train/factory.py`` (reference
-models/networkFactory.py) for the centerOffset and corner families on one
-card:
+models/networkFactory.py) for the centerOffset, corner and cornerLegacy
+families on one card:
 
 - ``make_lr_schedule`` / ``make_optimizer``: Adam, or SGD with momentum
   0.9 and weight decay 1e-4, on optax's piecewise-constant schedule. The
   update with 0-based count n uses ``schedule(n)``, so a milestone at
   11,000 already decays the update of count 11,000, as optax does;
 - the step: augment + render (K1 on the card; the corner families'
-  tl/br heatmaps too) -> forward, under
+  tl/br heatmaps too, the cornerLegacy family's in two launches) ->
+  forward, under
   ``torch.autocast(bfloat16)`` when ``precision`` is ``bfloat16`` ->
   loss in float32 -> backward -> update. Parameters, BatchNorm
   statistics and the loss stay float32;
+- ``remat``: a model with a ``remat`` argument (the stacked hourglasses)
+  recomputes its own parts in the backward; any other model has its
+  whole forward recomputed (``models/layers.checkpointed``), as the JAX
+  trainer falls back to ``jax.checkpoint`` of the forward. The
+  BatchNorm statistics move once a step either way;
 - a device-resident dataset (``residency`` auto/device/host,
   ``storageDtype``): the training rows sit on the card in the storage
   dtype and each step sends an index vector; host streaming when they
@@ -30,12 +36,16 @@ card:
 Each step's draws come from a ``torch.Generator`` seeded from
 (seed + 1, step) (``data/pipeline.step_seed``), the JAX trainer's
 ``fold_in(PRNGKey(seed + 1), step)``, so a resumed run continues the
-sequence. Not carried over: the device mesh and data parallelism, the
-pipeline schedule, remat, the debug overlays and ``StepProfiler``.
+sequence. The validation set is cut into whole batches (a remainder is
+dropped, ``data/dataset.get_validation_set``), so no batch carries
+padding rows and no decoded score needs the JAX trainer's padding mask.
+Not carried over: the device mesh and data parallelism, the pipeline
+schedule, the debug overlays and ``StepProfiler``.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import re
@@ -62,11 +72,12 @@ from scd_resnet_tpu_torch.data.pipeline import (
     step_seed,
 )
 from scd_resnet_tpu_torch.models.center_net_offset import as_stack_list
+from scd_resnet_tpu_torch.models.layers import checkpointed
 from scd_resnet_tpu_torch.models.resnet import init_like_flax
 from scd_resnet_tpu_torch.train.registry import get_dataset_profile, get_model_profile
 
 _METRIC_TOKEN = re.compile(r"\[(\S+?)\]\s+([-+0-9.eE]+)")
-_UNSUPPORTED = ("meshShape", "meshAxes", "pipelineMicrobatches", "remat")
+_UNSUPPORTED = ("meshShape", "meshAxes", "pipelineMicrobatches")
 
 
 def parse_metric_line(line: str, name: str) -> Optional[float]:
@@ -144,7 +155,13 @@ class NetworkFactory:
         # cuDNN's settings are the entry point's (core/device.training_backends)
         self.autocast = precision == "bfloat16"
 
-        self.model = self.profile.build()
+        # remat as the JAX trainer sets it (factory.py:142-147, 352-354)
+        remat = bool(cfg.config.get("remat", False))
+        own_remat = "remat" in inspect.signature(
+            self.profile.model_cls).parameters
+        self.model = self.profile.build(**({"remat": True}
+                                           if remat and own_remat else {}))
+        self.remat_forward = remat and not own_remat
         init_like_flax(self.model, torch.Generator().manual_seed(seed))
         self.model.to(self.device)
         self.loss = self.profile.loss
@@ -214,7 +231,7 @@ class NetworkFactory:
         self.optimizer.zero_grad(set_to_none=True)
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.autocast):
-            outs = self.model(xs)
+            outs = checkpointed(self.model, xs, enabled=self.remat_forward)
         loss, stats = self.loss(as_stack_list(outs), ys)
         loss.backward()
         self.optimizer.step()

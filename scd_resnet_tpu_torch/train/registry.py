@@ -12,7 +12,14 @@ registry's (reference trainer/model/*.py):
 - ``cornerRes{10,18}``, ``cornerCPoolRes{10,18}``,
   ``cornerCombinedRes{10,18}``: full width, family ``corner``, trained on
   corner targets; the combined model's loss and decode split its one
-  3-channel head.
+  3-channel head;
+- ``centerOffsetHourglass`` and ``centerOffsetHourglass2``: the stacked
+  hourglass with 1 and 2 stacks at the production geometry
+  (``models/center_net_offset.HOURGLASS_*``), the centerOffset contract
+  from the last stack;
+- ``cornerLegacyHourglass``: the 2-stack associative-embedding
+  CornerNet, family ``cornerLegacy``, trained on the legacy corner
+  targets (``corner_targets="legacy"``).
 
 ``family`` names the deployment contract (``infer/wrapper.CONTRACTS``).
 Every profile carries its training pieces (``loss``, ``decode``,
@@ -34,9 +41,11 @@ from torch import nn
 
 from scd_resnet_tpu_torch.models import center_net_offset as cno
 from scd_resnet_tpu_torch.models import corner_net as corner
+from scd_resnet_tpu_torch.models import corner_net_legacy as legacy
 from scd_resnet_tpu_torch.train.expression import (
     expression_center_net,
     expression_corner_net,
+    expression_corner_net_legacy,
 )
 
 
@@ -50,11 +59,12 @@ class ModelProfile:
     decode: Optional[Callable] = None
     evaluation: Optional[Callable] = None
     expression: Optional[Callable] = None
-    # corner families train on batches that carry tl/br corner heatmaps
+    # corner families train on batches that carry tl/br corner heatmaps;
+    # "legacy" on the cornerLegacy targets
     corner_targets: Any = False
 
-    def build(self) -> nn.Module:
-        return self.model_cls(**self.model_params)
+    def build(self, **overrides) -> nn.Module:
+        return self.model_cls(**{**self.model_params, **overrides})
 
     @property
     def num_layers(self) -> int:
@@ -139,6 +149,30 @@ for _depth in (10, 18):
     _corner(f"cornerCPoolRes{_depth}", corner.CornerNetCPoolResidual, _depth)
     _corner(f"cornerCombinedRes{_depth}", corner.CornerNetCombined, _depth,
             combined=True)
+
+for _stacks, _name in ((1, "centerOffsetHourglass"),
+                       (2, "centerOffsetHourglass2")):
+    register_model(ModelProfile(
+        name=_name,
+        model_cls=cno.CenterNetHourglass,
+        model_params={"stacks": _stacks},
+        loss=cno.CenterNetLoss(0.1, 0.1),
+        decode=cno.decode_center_net,
+        evaluation=cno.center_net_evaluation,
+        expression=expression_center_net,
+    ))
+
+register_model(ModelProfile(
+    name="cornerLegacyHourglass",
+    model_cls=legacy.CornerNetLegacy,
+    model_params={"categories": 1, "stacks": 2},
+    family="cornerLegacy",
+    loss=legacy.CornerNetLegacyLoss(),
+    decode=legacy.decode_corner_net_legacy_list,
+    evaluation=legacy.corner_net_legacy_evaluation,
+    expression=expression_corner_net_legacy,
+    corner_targets="legacy",
+))
 
 for _a in (1, 4, 8, 12, 16):
     for _p in (5, 10, 25, 50, 100):

@@ -3,7 +3,8 @@
 ``serve`` CLI's refusal to start without CUDA unless ``--device cpu``,
 and subprocesses that block ``jax``, ``flax``, ``optax`` and
 ``scd_resnet_tpu`` and still import the port, serve a clip and train
-through ``python -m scd_resnet_tpu_torch.train``."""
+through ``python -m scd_resnet_tpu_torch.train`` (the legacy CornerNet
+with remat among the models)."""
 
 import io
 import json
@@ -145,10 +146,11 @@ SERVE_BLOCKED = BLOCK + textwrap.dedent("""
 """) + LEAK_CHECK + 'print("served", len(detections))\n'
 
 # python -m scd_resnet_tpu_torch.train <tiny config> --device cpu, for a
-# centerOffset, a corner-pool and a DCN model (quarter width, registered
-# here)
+# centerOffset, a corner-pool and a DCN model (quarter width) and a
+# two-stack legacy CornerNet under remat (the small hourglass geometry),
+# registered here
 TRAIN_ARCHS = ("centerOffsetRes10q", "cornerCPoolRes10q",
-               "centerOffsetRes10dcnq")
+               "centerOffsetRes10dcnq", "cornerLegacyHourglassq")
 TRAIN_BLOCKED = BLOCK + textwrap.dedent("""
     import dataclasses, json, os, runpy
     from scd_resnet_tpu_torch.data.synthetic import make_archive
@@ -163,6 +165,12 @@ TRAIN_BLOCKED = BLOCK + textwrap.dedent("""
         name="centerOffsetRes10dcnq",
         model_params={"num_layers": 10, "dims": registry.QUARTER,
                       "terminal_hidden": 64, "dcn": True})
+    registry.MODEL_PROFILES["cornerLegacyHourglassq"] = dataclasses.replace(
+        registry.get_model_profile("cornerLegacyHourglass"),
+        name="cornerLegacyHourglassq",
+        model_params={"categories": 1, "stacks": 2, "iterations": 2,
+                      "dimensions": (16, 24, 32), "modules": (1, 1, 1),
+                      "prediction_dim": 32})
     root = sys.argv[1]
     make_archive(os.path.join(root, "scdx16p100.d"), num_images=2, reps=1,
                  clips_per_image=8, size=64)
@@ -173,6 +181,7 @@ TRAIN_BLOCKED = BLOCK + textwrap.dedent("""
                        "trainName": arch, "batchSize": 4,
                        "validationBatchSize": 4, "iterations": 2,
                        "validation": 2, "snapshot": 2,
+                       "remat": arch.startswith("cornerLegacy"),
                        "dirTemp": os.path.join(root, "temp/"),
                        "dirResult": os.path.join(root, "results/"),
                        "dirDataset": root + "/"}, f)

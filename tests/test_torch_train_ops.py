@@ -227,15 +227,21 @@ def test_batch_transform_matches_jax(augment):
 
 
 def test_batch_transform_refuses_corner_targets():
-    """The legacy corner targets come with the cornerLegacy port; the
-    corner families' targets add the tl/br heatmaps to the center
-    batch's arrays (held against JAX in test_torch_corner_models.py)."""
+    """The transform refuses a target family it does not know; the legacy
+    family's targets are the cornerLegacy layout (held against JAX in
+    test_torch_legacy.py); the corner families' targets add the tl/br
+    heatmaps to the center batch's arrays (held against JAX in
+    test_torch_corner_models.py)."""
     samples, locs, counts = _raw_batch()
     args = (torch.from_numpy(samples), torch.from_numpy(locs),
             torch.from_numpy(counts), HEAT)
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(ValueError, match="corner_targets"):
         augment_and_render_batch(*args, augment=False,
-                                 corner_targets="legacy")
+                                 corner_targets="legacy corners")
+    _, legacy = augment_and_render_batch(*args, augment=False,
+                                         corner_targets="legacy")
+    assert len(legacy) == 7 and legacy[0].shape == (len(samples), 1, HEAT,
+                                                    HEAT)
     _, center = augment_and_render_batch(*args, augment=False)
     _, corner = augment_and_render_batch(*args, augment=False,
                                          corner_targets=True)

@@ -21,12 +21,54 @@ order differently under ``torch.topk`` and ``lax.top_k``.)"""
 
 from __future__ import annotations
 
+import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
 QUARTER = (16, 16, 32, 64, 128, 64, 64, 64)
+# the stacked hourglasses' small test geometry, as keyword arguments of
+# the port's CenterNetHourglass and CornerNetLegacy
+HOURGLASS_SMALL = {"iterations": 2, "dimensions": (16, 24, 32),
+                   "modules": (1, 1, 1), "prediction_dim": 32}
+# flax paths of the hourglass heads' final 1x1 convs (two stacks)
+HOURGLASS_HEAD_PATHS = tuple(
+    "StackHourglass_0/{}_{}/Conv_0".format(head, s)
+    for head in ("heatmap", "regr", "offset") for s in (0, 1))
+LEGACY_HEAD_PATHS = tuple("{}_{}/{}".format(corner, s, head)
+                          for corner in ("tl", "br") for s in (0, 1)
+                          for head in ("heat", "tag", "regr"))
+
+
+class SmallCenterNetHourglass(nn.Module):
+    """The JAX ``CenterNetHourglass`` at ``HOURGLASS_SMALL``: the JAX
+    model fixes its geometry in constants, so the tests wrap its
+    ``StackHourglass`` the same way at a smaller one."""
+
+    stacks: int = 1
+    compute_dtype: str = "float32"
+    remat: bool = False
+
+    @nn.compact
+    def __call__(self, x, train: bool = False):
+        from scd_resnet_tpu.models.center_net_offset import HOURGLASS_TERMINALS
+        from scd_resnet_tpu.models.hourglass import StackHourglass
+
+        return StackHourglass(
+            hourglass_iterations=HOURGLASS_SMALL["iterations"],
+            stacks=self.stacks, dimensions=HOURGLASS_SMALL["dimensions"],
+            modules=HOURGLASS_SMALL["modules"],
+            prediction_dim=HOURGLASS_SMALL["prediction_dim"],
+            terminals=HOURGLASS_TERMINALS, pool_downsample=False,
+            remat=self.remat, dtype=jnp.dtype(self.compute_dtype))(x, train)
+
+
+def jax_small_legacy(**kw):
+    """The JAX ``CornerNetLegacy`` at ``HOURGLASS_SMALL``."""
+    from scd_resnet_tpu.models.corner_net_legacy import CornerNetLegacy
+
+    return CornerNetLegacy(**HOURGLASS_SMALL, **kw)
 # flax paths of the heads' final 1x1 convs in both model trees
 HEAD_PATHS = ("ResNetBackbone_0/heatmap/Conv_1", "ResNetBackbone_0/regr/Conv_1",
               "ResNetBackbone_0/offset/Conv_1", "Conv_1", "tl_head/Conv_1",
@@ -56,15 +98,14 @@ def _randomize(tree, rng, path="", final_heads=()):
     return out
 
 
-def flax_variables(model, seed: int):
+def flax_variables(model, seed: int, heads=HEAD_PATHS):
     """(params, batch_stats) numpy trees for ``model``, drawn from
-    ``seed`` (head finals at ``HEAD_PATHS`` as the module says)."""
+    ``seed`` (head finals at ``heads`` as the module says)."""
     variables = model.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 1)),
                            train=False)
     variables = jax.tree_util.tree_map(np.asarray, variables)
     rng = np.random.default_rng(seed)
-    params = _randomize(variables["params"], rng,
-                        final_heads=HEAD_PATHS)
+    params = _randomize(variables["params"], rng, final_heads=heads)
     stats = _randomize(variables["batch_stats"], rng)
     return params, stats
 
