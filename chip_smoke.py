@@ -64,8 +64,9 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
    so it computes the same function up to the rounding of the coordinate
    normalisation) and its backward, ``grid_sampler_2d_backward``;
 6. serves ``cornerCPoolRes10``, ``centerOffsetRes10``,
-   ``centerOffsetRes10dcn``, ``centerOffsetHourglass2`` and
-   ``cornerLegacyHourglass`` at full width through the port's own serve
+   ``centerOffsetRes10dcn``, ``centerOffsetHourglass2``,
+   ``cornerLegacyHourglass`` and ``centerRes10`` (whose seeded size head
+   is random: its sizes may be negative) at full width through the port's own serve
    entry point (``serve.build_service`` + the HTTP server), from seeded
    random weights whose heat heads are rescaled so that a few dozen
    peaks per clip pass the 0.3 threshold, and POSTs a seeded synthetic
@@ -83,7 +84,25 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
    agree bit for bit (serving is deterministic). Two of the clips then go
    through the same model on the CPU, and the card's decode rows must
    match the CPU's (tolerances at ``compare_rows``; the legacy contract's
-   paired boxes at ``compare_legacy_rows``);
+   paired boxes at ``compare_legacy_rows``). Then, from the served
+   checkpoints: ``cornerCPoolRes10`` streamed with
+   ``max_resident_clips=12`` (4 bands of 2 columns, each run padded to
+   the batch of 24) must give the monolithic request's detections
+   exactly and launch the corner-pool kernel 4 times a band, 16 in all,
+   and nothing else (counts set to 0 just before the request), with both
+   requests' time and peak memory printed; ``analyse.many`` over three
+   slides must equal ``analyse`` slide by slide; ``python -m
+   scd_resnet_tpu_torch.trace`` exports ``cornerCPoolRes10`` and
+   ``centerOffsetRes10dcn`` at (24, 1, 512, 512), each bundle serves a
+   PNG of the slide through ``python -m scd_resnet_tpu_torch.test -m`` in
+   a fresh process (its detections equal to the host-tiled path's with
+   the bundle here), and loaded here its rows on 24 clips must equal the
+   live wrapper's (else the largest difference is printed and held to
+   ``compare_rows``), launching the corner-pool kernel 4 times or the
+   gather once and nothing else; ``python -m scd_resnet_tpu_torch.test
+   -c`` on the ``centerOffsetRes10`` checkpoint with ``--pipelined
+   --fit`` over three PNGs must give the live analyzer's detections and
+   a fit;
 7. holds the heatmap-render kernel (``csrc/render_heatmap.cu``), one
    launch for every label map of a batch, against its plain version in
    each of its map sets: M = 1 (the center map), M = 3 (center, tl and
@@ -115,7 +134,8 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
    ``centerOffsetRes10dcn`` under ``configs/dcn_full.json``,
    ``centerOffsetHourglass2`` under ``configs/hourglass2_best.json`` and
    ``cornerLegacyHourglass`` under ``configs/legacy_full.json`` (remat)
-   the same way.
+   and ``centerRes10`` under ``configs/centersize_full.json`` the same
+   way.
    The launch counts are set to 0 just before each model's first run and
    read just after its resumed one, and must be exact: every model
    launches the render once a train step and once per validation
@@ -132,13 +152,15 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
    run's peak memory. Every loss must be finite, the mean focal loss of the last 10
    steps below that of the first 10, the [It] lines must parse (mIoU,
    AP50 and avgS for exp74, dcn_full and hourglass2_best; boxAP50 for
-   cpool_best; AP50 and mIoU for legacy_full) and the resumed run must
+   cpool_best; AP50 and mIoU for legacy_full; peakAP50 and mIoU for
+   centersize_full) and the resumed run must
    start at iteration 41;
 9. takes one float32 train step at full width on 2 clips, augmentation
    off, from the same weights on the card (the kernels) and on the CPU
    (the plain versions), for ``centerOffsetRes10``, ``cornerCPoolRes10``,
-   ``centerOffsetRes10dcn``, ``centerOffsetHourglass2`` and
-   ``cornerLegacyHourglass`` (remat): targets within 1e-6, loss within
+   ``centerOffsetRes10dcn``, ``centerOffsetHourglass2``,
+   ``cornerLegacyHourglass`` (remat) and ``centerRes10``: targets within
+   1e-6, loss within
    1e-4 relative, global gradient norm within 1e-3 relative (float32
    convolutions sum in another order on the two devices); a probe
    gradient must be non-zero and within 1e-3 relative too: for the
@@ -201,10 +223,22 @@ from scd_resnet_tpu_torch.data.pipeline import (
     legacy_targets,
 )
 from scd_resnet_tpu_torch.data.synthetic import make_archive
-from scd_resnet_tpu_torch.infer.analyse import make_device_tiler
+from scd_resnet_tpu_torch.infer.analyse import (
+    CONTRACT_FIELDS,
+    analyse_images,
+    band_plan,
+    make_device_analyzer,
+    make_device_tiler,
+    read_gray_u8,
+    slide_geometry,
+)
 from scd_resnet_tpu_torch.infer.server import create_server
 from scd_resnet_tpu_torch.infer.synthetic import seeded_model, synthetic_slide
-from scd_resnet_tpu_torch.infer.wrapper import make_wrapper
+from scd_resnet_tpu_torch.infer.wrapper import (
+    load_traced,
+    load_wrapper,
+    make_wrapper,
+)
 from scd_resnet_tpu_torch.models.hourglass import StackHourglass
 from scd_resnet_tpu_torch.ops import corner_pool as cp
 from scd_resnet_tpu_torch.ops import dcn
@@ -214,6 +248,7 @@ from scd_resnet_tpu_torch.ops.radius import corner_threshold_radius
 from scd_resnet_tpu_torch.profile_kernels import device_kernels
 from scd_resnet_tpu_torch.profile_serve import device_ms
 from scd_resnet_tpu_torch.profile_train import (
+    CENTERSIZE_FULL,
     CPOOL_BEST,
     DCN_FULL,
     EXP74,
@@ -879,8 +914,9 @@ def compare_rows(family, gpu_rows, cpu_rows):
     off): scores within 1e-4 absolute; the top-K positions equal wherever
     the score is above 0.3 and at least 1e-4 from its neighbours in the
     ranking (closer scores may swap ranks under another summation order);
-    the centerOffset regression rows at those positions within 1e-3
-    relative to the row's largest value. The cornerLegacy contract's
+    the centerOffset regression rows and the centerSize size rows at those
+    positions within 1e-3 relative to the row's largest value. The
+    cornerLegacy contract's
     paired boxes (B, 1000, 8): ``compare_legacy_rows``."""
     if family == "cornerLegacy":
         return compare_legacy_rows(gpu_rows, cpu_rows)
@@ -900,13 +936,13 @@ def compare_rows(family, gpu_rows, cpu_rows):
         if not torch.equal(gpu[4 * b + 1][firm], cpu[4 * b + 1][firm]):
             raise AssertionError("{} top-K positions differ".format(family))
         checked += int(firm.sum())
-        if family == "centerOffset":
-            for r in range(4, 10):
+        if family in ("centerOffset", "centerSize"):
+            for r in range(4, len(cpu)):
                 scale = max(1.0, cpu[r].abs().max().item())
                 rerr = (gpu[r][firm] - cpu[r][firm]).abs().max().item()
                 if rerr > 1e-3 * scale:
-                    raise AssertionError("centerOffset row {} differs by {} "
-                                         "(scale {})".format(r, rerr, scale))
+                    raise AssertionError("{} row {} differs by {} (scale "
+                                         "{})".format(family, r, rerr, scale))
     if checked == 0:
         raise AssertionError("no firm peaks to compare")
     return checked
@@ -1088,6 +1124,202 @@ def dcn_served_samples(model, clips):
                              "spread: {}".format(kinds))
     log("centerOffsetRes10dcn served samples: {}".format(kinds))
     return kinds
+
+
+# -- 6, continued: streaming, analyse.many, traced bundles, test -c ---------------
+
+def k2_launches(counts) -> int:
+    """The corner-pool forward kernel's launches, both walks, in ``counts``."""
+    return sum(counts[name] for name in cp.KERNEL_NAMES.values())
+
+
+def only(counts, expected):
+    """``counts`` must hold ``expected`` and 0 for every other kernel."""
+    want = {name: 0 for name in cuda_build.LAUNCHES}
+    want.update(expected)
+    if dict(counts) != want:
+        raise AssertionError("the kernels launched {}, expected {}".format(
+            dict(counts), want))
+
+
+def check_streaming(slide, build_dir):
+    """``cornerCPoolRes10`` (the served checkpoint) with
+    ``max_resident_clips=12``: 4 bands of 2 columns (12 clips, run padded
+    to the batch of 24); detections equal to the monolithic analyzer's
+    and K2 launched 4 times a band. Each request warmed up once; its
+    time and peak memory printed."""
+    wrapper = load_wrapper(os.path.join(build_dir, "cornerCPoolRes10.pt"),
+                           "cornerCPoolRes10")
+    analyzers = {"monolithic": make_device_analyzer(wrapper, SLIDE_W,
+                                                    SLIDE_H),
+                 "banded": make_device_analyzer(wrapper, SLIDE_W, SLIDE_H,
+                                                max_resident_clips=12)}
+    out = {}
+    for mode, analyse in analyzers.items():
+        analyse(slide)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        detections = analyse(slide)
+        ms = (time.perf_counter() - t0) * 1e3
+        out[mode] = {"detections": detections, "ms": ms,
+                     "launches": dict(cuda_build.LAUNCHES),
+                     "peak_memory_gb": torch.cuda.max_memory_allocated()
+                     / 1024 ** 3}
+    bands = len(band_plan(*slide_geometry(SLIDE_W, SLIDE_H)[:2], 12))
+    only(out["banded"]["launches"], {
+        name: 2 * bands for name in cp.KERNEL_NAMES.values()})
+    if not out["monolithic"]["detections"] or \
+            out["banded"]["detections"] != out["monolithic"]["detections"]:
+        raise AssertionError("streamed detections ({}) differ from the "
+                             "monolithic ones ({})".format(
+                                 len(out["banded"]["detections"]),
+                                 len(out["monolithic"]["detections"])))
+    log("cornerCPoolRes10 streamed in {} bands of 12 clips: {} detections, "
+        "equal to the monolithic request's; K2 {} launches; ms {:.1f} "
+        "(banded) and {:.1f} (monolithic); peak memory {:.3f} and {:.3f} "
+        "GB".format(bands, len(out["banded"]["detections"]),
+                    k2_launches(out["banded"]["launches"]),
+                    out["banded"]["ms"], out["monolithic"]["ms"],
+                    out["banded"]["peak_memory_gb"],
+                    out["monolithic"]["peak_memory_gb"]))
+    # three slides through analyse.many, each equal to its own analyse
+    slides = [slide, np.ascontiguousarray(slide[:, ::-1]),
+              synthetic_slide(SLIDE_H, SLIDE_W, seed=2057)]
+    single = [analyzers["monolithic"](g) for g in slides]
+    t0 = time.perf_counter()
+    many = analyzers["monolithic"].many(iter(slides))
+    many_ms = (time.perf_counter() - t0) * 1e3
+    if many != single or not all(single):
+        raise AssertionError("analyse.many differs from analyse slide by "
+                             "slide")
+    log("analyse.many over 3 slides: {:.1f} ms, each slide's detections "
+        "equal to its own analyse ({})".format(
+            many_ms, [len(d) for d in single]))
+    return {mode: {k: v for k, v in r.items() if k != "detections"}
+            for mode, r in out.items()} | {
+        "bands": bands, "detections": len(out["banded"]["detections"]),
+        "many_ms": many_ms}, out["banded"]["launches"]
+
+
+def write_pngs(slide, build_dir):
+    """The slide, its mirror image and a second seeded slide as PNGs."""
+    paths = []
+    for i, image in enumerate((slide, np.ascontiguousarray(slide[:, ::-1]),
+                               synthetic_slide(SLIDE_H, SLIDE_W,
+                                               seed=2057))):
+        path = os.path.join(build_dir, "slide{}.png".format(i))
+        Image.fromarray(image).save(path)
+        paths.append(path)
+    return paths
+
+
+def port_cli(module: str, *args) -> str:
+    """``python -m scd_resnet_tpu_torch.<module> args`` in a fresh
+    process; its output, or its error output in the raised error."""
+    proc = subprocess.run([sys.executable, "-m",
+                           "scd_resnet_tpu_torch." + module, *args],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError("{} {} failed ({}):\n{}".format(
+            module, args, proc.returncode, proc.stderr[-4000:]))
+    return proc.stdout
+
+
+def check_bundle(arch, slide, png, build_dir):
+    """Trace ``arch``'s served checkpoint at (24, 1, 512, 512) through
+    ``python -m scd_resnet_tpu_torch.trace``, serve a PNG of the slide
+    with it through ``python -m scd_resnet_tpu_torch.test -m`` in a fresh
+    process, and in this one: the bundle's rows on a batch of 24 clips
+    against the live wrapper's (bit for bit expected; else the largest
+    difference, held to ``compare_rows``), its launches on that batch
+    (K2 4, K4 1), both batches' times, and the CLI's detections against
+    the host-tiled path's with the same bundle here."""
+    ckpt = os.path.join(build_dir, arch + ".pt")
+    bundle = os.path.join(build_dir, arch + ".pt2")
+    t0 = time.perf_counter()
+    port_cli("trace", bundle, "-a", arch, "-m", ckpt, "-s", "24 1 512 512")
+    trace_s = time.perf_counter() - t0
+    out_json = os.path.join(build_dir, arch + ".test.json")
+    t0 = time.perf_counter()
+    port_cli("test", png, "-m", bundle, "-o", out_json)
+    test_s = time.perf_counter() - t0
+    with open(out_json) as f:
+        served = json.load(f)
+
+    fn, shape = load_traced(bundle)
+    live = load_wrapper(ckpt, arch)
+    clips = make_device_tiler(SLIDE_W, SLIDE_H, fn.device)(
+        torch.from_numpy(slide).to(fn.device))[:shape[0]].contiguous()
+    cuda_build.reset_launches()
+    rows = fn(clips)
+    torch.cuda.synchronize()
+    launches = dict(cuda_build.LAUNCHES)
+    expected = {dcn.KERNEL_NAME: 1} if is_dcn(arch) else {
+        name: pool_launches_per_forward(arch)
+        for name in cp.KERNEL_NAMES.values()}
+    only(launches, expected)
+    want = live(clips)
+    exact = torch.equal(rows, want)
+    max_diff = (rows - want).abs().max().item()
+    if not exact:
+        compare_rows(live.contract, rows, want.cpu())
+    bundle_ms = device_ms(lambda: fn(clips), 5, warmup=1)
+    live_ms = device_ms(lambda: live(clips), 5, warmup=1)
+    host = analyse_images(fn, png, batch_size=shape[0])
+    got = [[d[k] for k in CONTRACT_FIELDS[served["contract"]]]
+           for d in served["detections"]]
+    if served["contract"] != live.contract or not got or got != host:
+        raise AssertionError("{}: test -m served {} detections ({}), the "
+                             "host path here {}".format(
+                                 arch, len(got), served["contract"],
+                                 len(host)))
+    log("{} bundle {} ({} bytes): rows on a batch of {} {} the live "
+        "wrapper's (largest difference {:.3g}); launches {}; batch ms "
+        "{:.2f} (bundle) and {:.2f} (live); trace {:.1f} s, test -m {:.1f} "
+        "s, {} detections equal to the host path's".format(
+            arch, bundle, os.path.getsize(bundle), shape[0],
+            "equal to" if exact else "within compare_rows of", max_diff,
+            {k: v for k, v in launches.items() if v}, bundle_ms, live_ms,
+            trace_s, test_s, len(got)))
+    return {"arch": arch, "rows_equal": exact, "max_diff": max_diff,
+            "bundle_batch_ms": bundle_ms, "live_batch_ms": live_ms,
+            "trace_s": trace_s, "test_s": test_s,
+            "detections": len(got)}, launches
+
+
+def check_test_checkpoint(pngs, build_dir):
+    """``python -m scd_resnet_tpu_torch.test -c`` on the served
+    ``centerOffsetRes10`` checkpoint with ``--pipelined --fit`` over three
+    PNGs: the detections equal the live analyzer's here, slide by slide,
+    and the fit is there."""
+    ckpt = os.path.join(build_dir, "centerOffsetRes10.pt")
+    out_json = os.path.join(build_dir, "test_c.json")
+    t0 = time.perf_counter()
+    port_cli("test", *pngs, "-c", ckpt, "-a", "centerOffsetRes10",
+             "--pipelined", "--fit", "-o", out_json)
+    seconds = time.perf_counter() - t0
+    with open(out_json) as f:
+        served = json.load(f)
+    live = load_wrapper(ckpt, "centerOffsetRes10")
+    analyse = make_device_analyzer(live, SLIDE_W, SLIDE_H)
+    want = [[png, *det] for png in pngs
+            for det in analyse(read_gray_u8(png))]
+    got = [[d["image"], d["x"], d["y"], d["rhr"]]
+           for d in served["detections"]]
+    if served["images"] != pngs or got != want or not got \
+            or set(served.get("gauss2", {})) != {"a1", "m1", "s1", "a2",
+                                                 "m2", "s2"}:
+        raise AssertionError("test -c --pipelined --fit: {} detections, the "
+                             "live analyzer {}; keys {}".format(
+                                 len(got), len(want), sorted(served)))
+    log("test -c --pipelined --fit over {} slides: {:.1f} s, {} detections "
+        "equal to the live analyzer's; gauss2 {}".format(
+            len(pngs), seconds, len(got), served["gauss2"]))
+    return {"seconds": seconds, "detections": len(got),
+            "gauss2": served["gauss2"]}
 
 
 # -- 7. the render kernel against its plain version -----------------------------
@@ -1759,8 +1991,19 @@ def main() -> int:
                                      ("centerOffsetRes10", 11),
                                      ("centerOffsetRes10dcn", 12),
                                      ("centerOffsetHourglass2", 13),
-                                     ("cornerLegacyHourglass", 14))]
+                                     ("cornerLegacyHourglass", 14),
+                                     ("centerRes10", 15))]
         t0 = mark("serving", t0)
+        # 6, continued: the served checkpoints streamed, pipelined, traced
+        # and served by the test CLI
+        streamed, stream_counts = check_streaming(slide, build_dir)
+        t0 = mark("streaming_and_many", t0)
+        pngs = write_pngs(slide, build_dir)
+        bundles = [check_bundle(arch, slide, pngs[0], build_dir)
+                   for arch in ("cornerCPoolRes10", "centerOffsetRes10dcn")]
+        t0 = mark("bundles", t0)
+        test_c = check_test_checkpoint(pngs, build_dir)
+        t0 = mark("test_checkpoint", t0)
         finish_archive(writer, archive)
     finally:
         if writer is not None and writer.poll() is None:
@@ -1785,7 +2028,10 @@ def main() -> int:
                             ("mIoU", "AP50", "avgS")),
                train_config(LEGACY_FULL, data_dir,
                             os.path.join(build_dir, "legacy_full"),
-                            ("AP50", "mIoU"))]
+                            ("AP50", "mIoU")),
+               train_config(CENTERSIZE_FULL, data_dir,
+                            os.path.join(build_dir, "centersize_full"),
+                            ("peakAP50", "mIoU"))]
     t0 = mark("training", t0)
     # 9. one float32 step on the card and on the CPU, for each model
     steps = [step_card_vs_cpu(EXP74, os.path.join(build_dir, "step_exp74")),
@@ -1802,23 +2048,32 @@ def main() -> int:
              step_card_vs_cpu(LEGACY_FULL, os.path.join(build_dir,
                                                         "step_legacy"),
                               probe=("tl.0.pool_block.branch1.conv.weight",
-                                     slice(None)))]
+                                     slice(None))),
+             step_card_vs_cpu(CENTERSIZE_FULL,
+                              os.path.join(build_dir, "step_centersize"))]
     mark("step_card_vs_cpu", t0)
 
-    # 10. results: every path's counts, oldest first; each kernel's
-    # launches are those of the newest path that runs it
+    # 10. results: every path's counts, the serving paths (oldest first)
+    # before the training paths (oldest first); each kernel's launches
+    # are those of the newest path that runs it
     paths = {"serve_cornerCPoolRes10": served[0]["launches"],
              "serve_centerOffsetRes10dcn": served[2]["launches"],
              "serve_cornerLegacyHourglass": served[4]["launches"],
+             "serve_centerRes10": served[5]["launches"],
+             "stream_cornerCPoolRes10": stream_counts,
+             "bundle_cornerCPoolRes10": bundles[0][1],
+             "bundle_centerOffsetRes10dcn": bundles[1][1],
              "train_exp74": trained[0]["launches"],
              "train_cpool_best": trained[1]["launches"],
              "train_dcn_full": trained[2]["launches"],
              "train_hourglass2_best": trained[3]["launches"],
-             "train_legacy_full": trained[4]["launches"]}
+             "train_legacy_full": trained[4]["launches"],
+             "train_centersize_full": trained[5]["launches"]}
     # the render's map sets by the paths that launch them: M = 1 center
-    # (exp74, dcn_full, hourglass2_best), M = 3 (cpool_best), the offset
+    # (exp74, dcn_full, hourglass2_best, centersize_full), M = 3
+    # (cpool_best), the offset
     # set twice a batch transform (legacy_full)
-    for set_name, path in (("center", "train_hourglass2_best"),
+    for set_name, path in (("center", "train_centersize_full"),
                            ("center+tl+br", "train_cpool_best"),
                            ("offset", "train_legacy_full")):
         render["map_sets"][set_name]["main_path"] = path
@@ -1851,7 +2106,9 @@ def main() -> int:
                 bwd_results[d]["forward_ms"] for d in direction) / len(
                     direction)
     phases["total"] = time.perf_counter() - t_start
-    log(json.dumps({"serving": served, "training": trained,
+    log(json.dumps({"serving": served, "streaming": streamed,
+                    "bundles": [b[0] for b in bundles],
+                    "test_checkpoint": test_c, "training": trained,
                     "step_card_vs_cpu": steps, "card": gpu_line,
                     "seconds": phases}))
     log(json.dumps({"kernels": kernels}))

@@ -7,8 +7,9 @@ JAX package (``ops/``, ``models/``, ``infer/``, ``core/``,
 NCHW; entry points take an explicit ``device`` and run on CUDA unless
 the caller passes ``device="cpu"``.
 
-Ported so far: slide serving (``python -m scd_resnet_tpu_torch.serve``)
-for the ``centerOffset*`` and ``cornerCPoolRes*`` profiles, with the
-corner-pool running max as a hand-written CUDA kernel
-(``csrc/corner_pool.cu``).
+Ported so far: every model profile of the JAX registry serves
+(``python -m scd_resnet_tpu_torch.serve``; the slide CLI ``.test`` and
+the exporter ``.trace``) and trains (``python -m
+scd_resnet_tpu_torch.train``), with every Pallas kernel of the JAX
+package as a hand-written CUDA kernel (``csrc/*.cu``).
 """

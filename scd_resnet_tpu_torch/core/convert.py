@@ -25,7 +25,8 @@ For the ``centerOffset`` family the result carries the reference's names,
 the same dict ``scd_resnet_tpu/core/torch_convert.export_center_net_residual``
 writes. ``cornerRes*`` and ``cornerCombinedRes*`` share that layout with
 their own heads (``heatmap``/``tl``/``br``, or one 3-channel
-``heatmap``); ``cornerCPoolRes*`` nests the backbone under
+``heatmap``), and so does ``centerRes10`` (``heatmap``/``size``);
+``cornerCPoolRes*`` nests the backbone under
 ``backbone.`` beside its center head and two corner-pool heads.
 
 The stacked hourglasses are walked along the port model the profile
@@ -55,6 +56,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from scd_resnet_tpu_torch.models.center_net import CenterNetSizeResidual
 from scd_resnet_tpu_torch.models.center_net_offset import CenterNetResidual
 from scd_resnet_tpu_torch.models.corner_net import (
     CornerNetCombined,
@@ -73,6 +75,7 @@ StateDict = Dict[str, torch.Tensor]
 # the terminal heads of each model that is a ResNetBackbone itself
 TERMINAL_HEADS = {
     CenterNetResidual: ("heatmap", "regr", "offset"),
+    CenterNetSizeResidual: ("heatmap", "size"),
     CornerNetResidual: ("heatmap", "tl", "br"),
     CornerNetCombined: ("heatmap",),
 }

@@ -35,12 +35,11 @@ import torch
 
 from scd_resnet_tpu_torch.infer.analyse import (
     CONTRACT_FIELDS,
-    coerce_gray_u8,
     dedupe_contract,
     make_device_analyzer,
+    read_gray_u8,
     slide_geometry,
 )
-from scd_resnet_tpu_torch.ops.image import grayscale_inference_u8
 
 MAX_GEOMETRIES = 8  # analyzers kept, least recently used evicted first
 
@@ -134,24 +133,14 @@ class InferenceService:
         return self.analyse_gray(gray, dedupe=dedupe)
 
     def analyse_bytes(self, data: bytes, dedupe: Optional[float] = None):
-        from PIL import Image, UnidentifiedImageError
+        from PIL import UnidentifiedImageError
 
         try:
-            image = Image.open(io.BytesIO(data))
-            if image.mode == "P":  # palette -> real colors
-                image = image.convert("RGB")
-            color = np.asarray(image)
+            gray = read_gray_u8(io.BytesIO(data))
         except UnidentifiedImageError as exc:
             raise ClientError("unreadable image: {}".format(exc)) from exc
-        if not (np.issubdtype(color.dtype, np.integer)
-                or np.issubdtype(color.dtype, np.floating)):
-            raise ClientError("unsupported image dtype {}".format(color.dtype))
-        if color.ndim == 2:
-            gray = coerce_gray_u8(color)
-        elif color.ndim == 3 and color.shape[-1] >= 3:
-            gray = grayscale_inference_u8(coerce_gray_u8(color[..., :3]))
-        else:
-            raise ClientError("unsupported image shape {}".format(color.shape))
+        except ValueError as exc:
+            raise ClientError(str(exc)) from exc
         return self.analyse_gray(gray, dedupe=dedupe)
 
     def record_error(self):

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from scd_resnet_tpu_torch.models.layers import autocast_off
 from scd_resnet_tpu_torch.ops.dcn import deform_conv2d
 
 # flax's lecun_normal: a normal truncated to +-2 std whose std is divided
@@ -70,7 +71,7 @@ class DCN(nn.Module):
         return offset.permute(0, 2, 3, 1, 4), mask.permute(0, 2, 3, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        with torch.autocast(x.device.type, enabled=False):
+        with autocast_off(x.device.type):
             x = x.float()
             offset, mask = self.offsets_and_mask(x)
             return deform_conv2d(x, offset, mask, self.weight, self.bias,

@@ -48,6 +48,15 @@ def recomputing():
         _RECOMPUTE.active = before
 
 
+def autocast_off(device_type: str):
+    """A region that computes in its inputs' types under autocast: the
+    context that disables autocast where it is on, else nothing (so an
+    exported model, traced with autocast off, holds no autocast region)."""
+    if torch.is_autocast_enabled(device_type):
+        return torch.autocast(device_type, enabled=False)
+    return contextlib.nullcontext()
+
+
 def checkpointed(fn, *args, enabled: bool = True):
     """``fn(*args)`` with its activations recomputed in the backward
     (``torch.utils.checkpoint``, non-reentrant), the recompute under

@@ -32,6 +32,7 @@ from torch import nn
 from scd_resnet_tpu_torch.models.deformable import DCN, lecun_normal_
 from scd_resnet_tpu_torch.models.layers import (
     ConvBlock,
+    autocast_off,
     batch_norm,
     conv1x1,
     conv3x3,
@@ -176,7 +177,7 @@ class TerminalHead(nn.Sequential):
         # float32 even under autocast: the JAX head casts its input up and
         # keeps the final conv's dtype at float32; a float64 model computes
         # it in float64 from that float32 input, as the JAX head promotes
-        with torch.autocast(x.device.type, enabled=False):
+        with autocast_off(x.device.type):
             return final(x.float().to(final.weight.dtype))
 
 

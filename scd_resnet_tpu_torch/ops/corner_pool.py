@@ -10,7 +10,9 @@ axis 1/2 is NCHW dim 2/3 here). The four pools:
 - ``right_pool``  — out[j] = max over cols 0..j    (forward, dim 3)
 
 Two CUDA kernels in ``csrc/corner_pool.cu``: :func:`corner_pool` wraps
-the forward (the port of the TPU kernel ``corner_pool_pallas``) and
+the forward (the port of the TPU kernel ``corner_pool_pallas``), a
+``torch.library`` operator (``scd_resnet_tpu_torch::corner_pool``) so
+that ``torch.export`` keeps it in a traced bundle, and
 :func:`corner_pool_bwd` the backward (the port of
 ``corner_pool_bwd_pallas``). For a CUDA tensor each launches its kernel
 or raises; for a CPU tensor each computes its plain version.
@@ -118,12 +120,17 @@ def _launch(entry: str, tensors, dim: int, reverse: bool) -> None:
     cuda_build.check(lib, status, entry)
 
 
-def corner_pool(x: torch.Tensor, dim: int, reverse: bool) -> torch.Tensor:
-    """Directional running max of a (B, C, H, W) float32 tensor along
-    ``dim`` (2 = H, 3 = W), reversed for the top/left pools."""
-    _check("corner_pool", x, dim)
-    if x.device.type == "cpu":
-        return corner_pool_plain(x, dim, reverse)
+@torch.library.custom_op("scd_resnet_tpu_torch::corner_pool", mutates_args=())
+def _corner_pool_op(x: torch.Tensor, dim: int, reverse: bool) -> torch.Tensor:
+    """K2 as an operator, so that ``torch.export`` keeps it as one node
+    of an exported program: the plain version on the CPU, the kernel on
+    the card (registered below), the output's shape for a fake tensor."""
+    return corner_pool_plain(x, dim, reverse)
+
+
+@_corner_pool_op.register_kernel("cuda")
+def _corner_pool_cuda(x: torch.Tensor, dim: int, reverse: bool
+                      ) -> torch.Tensor:
     if not x.is_contiguous():
         raise ValueError("corner_pool needs an NCHW-contiguous tensor")
     y = torch.empty_like(x)
@@ -132,6 +139,19 @@ def corner_pool(x: torch.Tensor, dim: int, reverse: bool) -> torch.Tensor:
     _launch("corner_pool_f32", (x, y), dim, reverse)
     cuda_build.count_launch(KERNEL_NAMES[dim])
     return y
+
+
+@_corner_pool_op.register_fake
+def _corner_pool_fake(x: torch.Tensor, dim: int, reverse: bool
+                      ) -> torch.Tensor:
+    return torch.empty_like(x)
+
+
+def corner_pool(x: torch.Tensor, dim: int, reverse: bool) -> torch.Tensor:
+    """Directional running max of a (B, C, H, W) float32 tensor along
+    ``dim`` (2 = H, 3 = W), reversed for the top/left pools."""
+    _check("corner_pool", x, dim)
+    return _corner_pool_op(x, dim, reverse)
 
 
 def corner_pool_bwd(x: torch.Tensor, g: torch.Tensor, dim: int,
@@ -180,11 +200,13 @@ def _pool(x: torch.Tensor, dim: int, reverse: bool) -> torch.Tensor:
     """Public pool entry: always computes in float32 (exact for bf16 and
     fp16 inputs, since a running max only returns input values); the
     casts stay outside :class:`CornerPool`, as the JAX ``_pool`` keeps
-    them outside its custom VJP."""
+    them outside its custom VJP. Where no gradient is recorded (serving,
+    validation, an export) the operator is called directly, so that an
+    exported program holds it."""
+    pool = CornerPool.apply if torch.is_grad_enabled() else corner_pool
     if x.dtype != torch.float32:
-        return CornerPool.apply(x.float().contiguous(), dim,
-                                reverse).to(x.dtype)
-    return CornerPool.apply(x.contiguous(), dim, reverse)
+        return pool(x.float().contiguous(), dim, reverse).to(x.dtype)
+    return pool(x.contiguous(), dim, reverse)
 
 
 def top_pool(x: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,9 @@ whole sample is zeroed when it leaves the outer cutoff
 
 The CUDA kernels in ``csrc/dcn_gather.cu`` port the TPU kernel
 ``dcn_gather_pallas`` (``scd_resnet_tpu/ops/pallas_kernels.py:190``):
-:func:`dcn_gather` wraps the forward, :func:`dcn_gather_bwd` the backward,
+:func:`dcn_gather` wraps the forward, a ``torch.library`` operator
+(``scd_resnet_tpu_torch::dcn_gather``) so that ``torch.export`` keeps it
+in a traced bundle, and :func:`dcn_gather_bwd` the backward,
 which returns dx, dpy and dpx (in the JAX package that backward is XLA's
 derivative of the gather, l.206-216). For a CUDA tensor each launches
 its kernel or raises; for a CPU tensor each computes its plain version.
@@ -234,13 +236,21 @@ def bwd_scratch(b: int, h: int, w: int, c: int, n: int, plan: BwdPlan,
     return index, parts
 
 
-def dcn_gather(x: torch.Tensor, py: torch.Tensor, px: torch.Tensor
-               ) -> torch.Tensor:
-    """Bilinear samples of x (B, H, W, C) float32 at py, px (B, N) ->
-    (B, N, C), zero outside (module docstring)."""
-    _check("dcn_gather", x, py, px)
-    if x.device.type == "cpu":
-        return dcn_gather_plain(x, py, px)
+@torch.library.custom_op("scd_resnet_tpu_torch::dcn_gather", mutates_args=())
+def _dcn_gather_op(x: torch.Tensor, py: torch.Tensor, px: torch.Tensor
+                   ) -> torch.Tensor:
+    """K4's forward as an operator, so that ``torch.export`` keeps it as
+    one node of an exported program: the plain version on the CPU, the
+    kernel on the card (registered below), the output's shape for a fake
+    tensor."""
+    return dcn_gather_plain(x, py, px)
+
+
+@_dcn_gather_op.register_kernel("cuda")
+def _dcn_gather_cuda(x: torch.Tensor, py: torch.Tensor, px: torch.Tensor
+                     ) -> torch.Tensor:
+    if not all(t.is_contiguous() for t in (x, py, px)):
+        raise ValueError("dcn_gather needs contiguous tensors")
     b, n = py.shape
     out = torch.empty((b, n, x.shape[3]), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
@@ -248,6 +258,20 @@ def dcn_gather(x: torch.Tensor, py: torch.Tensor, px: torch.Tensor
     _launch("dcn_gather_f32", (x, py, px, out), x, n)
     cuda_build.count_launch(KERNEL_NAME)
     return out
+
+
+@_dcn_gather_op.register_fake
+def _dcn_gather_fake(x: torch.Tensor, py: torch.Tensor, px: torch.Tensor
+                     ) -> torch.Tensor:
+    return x.new_empty((py.shape[0], py.shape[1], x.shape[3]))
+
+
+def dcn_gather(x: torch.Tensor, py: torch.Tensor, px: torch.Tensor
+               ) -> torch.Tensor:
+    """Bilinear samples of x (B, H, W, C) float32 at py, px (B, N) ->
+    (B, N, C), zero outside (module docstring)."""
+    _check("dcn_gather", x, py, px)
+    return _dcn_gather_op(x, py, px)
 
 
 def dcn_gather_bwd(x: torch.Tensor, py: torch.Tensor, px: torch.Tensor,
@@ -332,8 +356,11 @@ def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     _, ho, wo, k, _ = offset.shape
     py, px = sampling_positions(offset, kh, kw, stride, padding, dilation)
     x_nhwc = x.permute(0, 2, 3, 1).contiguous()
-    sampled = DCNGather.apply(x_nhwc, py.reshape(b, -1).contiguous(),
-                              px.reshape(b, -1).contiguous())
+    # the operator itself where no gradient is recorded (serving, an
+    # export), so that an exported program holds it
+    gather = DCNGather.apply if torch.is_grad_enabled() else dcn_gather
+    sampled = gather(x_nhwc, py.reshape(b, -1).contiguous(),
+                     px.reshape(b, -1).contiguous())
     sampled = sampled.reshape(b, ho * wo, k, cin) * mask.reshape(
         b, ho * wo, k, 1)
     out = torch.matmul(sampled.reshape(b, ho * wo, k * cin),

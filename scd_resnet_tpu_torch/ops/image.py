@@ -47,9 +47,11 @@ def reflect_index(n: int, before: int, after: int, mode: str) -> np.ndarray:
 
 def pad_reflect_hybrid(image: np.ndarray, pad_lr: int, pad_tb: int
                        ) -> np.ndarray:
-    """Reflect-pad an (H, W) image: symmetric on x, reflect101 on y."""
+    """Reflect-pad an (H, W) image: symmetric on x, reflect101 on y; in
+    C order, as ``np.pad`` returns it (numpy sums a clip cut from it in
+    an order that follows the layout)."""
     image = np.asarray(image)
     h, w = image.shape
     rows = reflect_index(h, pad_tb, pad_tb, "reflect101")
     cols = reflect_index(w, pad_lr, pad_lr, "symmetric")
-    return image[rows][:, cols]
+    return np.ascontiguousarray(image[rows][:, cols])

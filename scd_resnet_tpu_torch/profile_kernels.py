@@ -122,15 +122,22 @@ def inputs(seed: int = 5) -> Dict[str, Callable[[], object]]:
 def device_kernels(fn: Callable[[], object], calls: int) -> Dict:
     """Device ms per call of each kernel ``fn`` launches, and its
     launches per call, by ``torch.profiler`` over ``calls`` calls after
-    two warm-up calls."""
+    two warm-up calls. The profiler records two rounds of ``calls`` and
+    keeps the second: at the start of a trace CUPTI can miss a kernel's
+    record (one of 50 render launches went missing once on the H100), so
+    the first round only warms the tracer up."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+            activities=[torch.profiler.ProfilerActivity.CUDA],
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                             repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
     kernels: Dict[str, Dict[str, float]] = {}
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:

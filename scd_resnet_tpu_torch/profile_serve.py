@@ -1,12 +1,15 @@
 """Where a served slide's time goes on the card.
 
     python -m scd_resnet_tpu_torch.profile_serve [--requests 5] [--arch A ...]
+        [--max-resident-clips N]
 
 For ``cornerCPoolRes10``, ``centerOffsetRes10``,
-``centerOffsetRes10dcn``, ``centerOffsetHourglass2`` and
-``cornerLegacyHourglass`` (or the ``--arch`` named) at full width (seeded
-weights, ``infer/synthetic.py``) on a seeded 3092x2056 slide (48 clips),
-after two warm-up requests, it prints one JSON line per model with:
+``centerOffsetRes10dcn``, ``centerOffsetHourglass2``,
+``cornerLegacyHourglass`` and ``centerRes10`` (or the ``--arch`` named)
+at full width (seeded weights, ``infer/synthetic.py``; the centerSize
+model's sizes are random and may be negative) on a seeded 3092x2056
+slide (48 clips), after two warm-up requests, it prints one JSON line
+per model with:
 
 - ``e2e_ms``: host wall time of one ``analyse(slide)`` (upload, tiling,
   forward, decode, readback, stitch), mean over ``--requests``;
@@ -20,7 +23,16 @@ after two warm-up requests, it prints one JSON line per model with:
   timed requests and phases;
 - ``forward_gflop_per_clip``: the model's forward operations on one
   clip, counted by ``torch.utils.flop_counter`` (convolutions and
-  products; the port's own kernels are not counted).
+  products; the port's own kernels are not counted);
+- ``modes``: ``e2e_ms`` and ``peak_memory_gb`` of the monolithic request
+  and, with ``--max-resident-clips N``, of the same request streamed in
+  column bands of at most N clips (``banded``, two warm-up requests
+  first), with ``banded_equal``: whether its detections equal the
+  monolithic ones;
+- ``forward_by_batch`` (with ``--max-resident-clips N``): the wrapper's
+  device time on the first N clips, on the first 24 (the batch a short
+  band is padded to) and on all, and whether each batch's rows equal
+  those of the same clips in the whole slide's batch.
 
 Needs a CUDA card; float32 with TF32 off and deterministic cuDNN, as in
 serving.
@@ -32,13 +44,14 @@ import argparse
 import json
 import subprocess
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from scd_resnet_tpu_torch.core.device import reproducible_float32, resolve_device
 from scd_resnet_tpu_torch.infer.analyse import (
+    BATCH_SIZE,
     make_device_analyzer,
     make_device_tiler,
     stitch_any,
@@ -52,7 +65,7 @@ SLIDE_W, SLIDE_H = 3092, 2056
 # arch -> seed
 ARCHS = {"cornerCPoolRes10": 10, "centerOffsetRes10": 11,
          "centerOffsetRes10dcn": 12, "centerOffsetHourglass2": 13,
-         "cornerLegacyHourglass": 14}
+         "cornerLegacyHourglass": 14, "centerRes10": 15}
 
 
 def device_ms(fn: Callable[[], object], n: int, warmup: int = 0) -> float:
@@ -70,7 +83,22 @@ def device_ms(fn: Callable[[], object], n: int, warmup: int = 0) -> float:
     return start.elapsed_time(end) / n
 
 
-def profile_arch(arch: str, seed: int, slide, n: int) -> Dict:
+def timed_requests(analyse: Callable, slide, n: int):
+    """(detections, mean host ms of ``n`` requests, peak GB) after two
+    warm-up requests."""
+    for _ in range(2):
+        analyse(slide)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        detections = analyse(slide)
+    e2e_ms = (time.perf_counter() - t0) * 1e3 / n
+    return detections, e2e_ms, torch.cuda.max_memory_allocated() / 1024 ** 3
+
+
+def profile_arch(arch: str, seed: int, slide, n: int,
+                 max_resident_clips: Optional[int] = None) -> Dict:
     device = torch.device("cuda")
     tiler = make_device_tiler(SLIDE_W, SLIDE_H, device)
     gray = torch.from_numpy(slide)
@@ -78,16 +106,27 @@ def profile_arch(arch: str, seed: int, slide, n: int) -> Dict:
     profile = get_model_profile(arch)
     model = seeded_model(arch, seed, clips)
     wrapper = make_wrapper(model, profile.family)
+    modes = {}
+    if max_resident_clips:
+        banded, ms, gb = timed_requests(make_device_analyzer(
+            wrapper, SLIDE_W, SLIDE_H,
+            max_resident_clips=max_resident_clips), slide, n)
+        modes["banded"] = {"max_resident_clips": max_resident_clips,
+                           "e2e_ms": ms, "peak_memory_gb": gb}
     analyse = make_device_analyzer(wrapper, SLIDE_W, SLIDE_H)
-    for _ in range(2):
-        analyse(slide)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    t0 = time.perf_counter()
-    for _ in range(n):
-        detections = analyse(slide)
-    e2e_ms = (time.perf_counter() - t0) * 1e3 / n
+    detections, e2e_ms, gb = timed_requests(analyse, slide, n)
+    modes["monolithic"] = {"e2e_ms": e2e_ms, "peak_memory_gb": gb}
+    by_batch = {}
+    if max_resident_clips:
+        modes["banded_equal"] = banded == detections
+        whole = wrapper(clips)
+        axis = 0 if wrapper.contract == "cornerLegacy" else 1
+        for size in (max_resident_clips, BATCH_SIZE, clips.shape[0]):
+            part = clips[:size].contiguous()
+            by_batch[size] = {
+                "ms": device_ms(lambda: wrapper(part), n, warmup=1),
+                "rows_equal_whole": torch.equal(
+                    wrapper(part), whole.narrow(axis, 0, size))}
 
     counter = FlopCounterMode(display=False)
     with counter, torch.inference_mode():
@@ -133,7 +172,8 @@ def profile_arch(arch: str, seed: int, slide, n: int) -> Dict:
             "device_busy_share": busy_ms / window_ms if window_ms else None,
             "kernels": kernels[:15],
             "forward_gflop_per_clip": counter.get_total_flops() / 1e9,
-            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1024 ** 3}
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1024 ** 3,
+            "modes": modes, "forward_by_batch": by_batch}
 
 
 def main(argv=None) -> None:
@@ -141,6 +181,9 @@ def main(argv=None) -> None:
     parser.add_argument("--requests", type=int, default=5)
     parser.add_argument("--arch", nargs="+", choices=sorted(ARCHS),
                         default=list(ARCHS), help="the models to profile")
+    parser.add_argument("--max-resident-clips", type=int, default=None,
+                        help="also time the request streamed in column "
+                             "bands of at most this many clips")
     args = parser.parse_args(argv)
     resolve_device("cuda")
     reproducible_float32()
@@ -149,7 +192,8 @@ def main(argv=None) -> None:
                           capture_output=True, text=True).stdout.strip()
     slide = synthetic_slide(SLIDE_H, SLIDE_W, seed=2056)
     for arch in args.arch:
-        result = profile_arch(arch, ARCHS[arch], slide, args.requests)
+        result = profile_arch(arch, ARCHS[arch], slide, args.requests,
+                              args.max_resident_clips)
         result["card"] = card
         print(json.dumps(result), flush=True)
 

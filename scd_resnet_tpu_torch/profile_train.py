@@ -6,9 +6,10 @@
 Trains the configuration's model under its settings (``configs/exp74.json``,
 ``centerOffsetRes10``, by default; ``configs/cpool_best.json`` trains
 ``cornerCPoolRes10``, ``configs/dcn_full.json`` ``centerOffsetRes10dcn``,
-``configs/hourglass2_best.json`` ``centerOffsetHourglass2`` and
-``configs/legacy_full.json`` ``cornerLegacyHourglass`` with remat; all
-512x512 clips, batch 32, bf16 autocast, Adam)
+``configs/hourglass2_best.json`` ``centerOffsetHourglass2``,
+``configs/legacy_full.json`` ``cornerLegacyHourglass`` with remat and
+``configs/centersize_full.json`` ``centerRes10``; all 512x512 clips,
+batch 32, bf16 autocast, Adam)
 on the seeded synthetic stand-in for the ``scdx16p100`` archive
 (``SYNTHETIC_ARCHIVE``, 256 clips; written to ``build/profile_train/``
 unless ``--archive`` names a copy, such as the one ``chip_smoke.py``
@@ -71,6 +72,7 @@ CPOOL_BEST = os.path.join(REPO, "configs", "cpool_best.json")
 DCN_FULL = os.path.join(REPO, "configs", "dcn_full.json")
 HOURGLASS2_BEST = os.path.join(REPO, "configs", "hourglass2_best.json")
 LEGACY_FULL = os.path.join(REPO, "configs", "legacy_full.json")
+CENTERSIZE_FULL = os.path.join(REPO, "configs", "centersize_full.json")
 # the synthetic stand-in for the scdx16p100 archive of the configurations
 # (``make_archive``'s arguments): 2 x 128 clips of 512^2, half of them
 # validation

@@ -7,11 +7,14 @@ taken (orthogonality NaN-filtered), AP computed at 0.3/0.5/0.7/0.9, and
 the ``[mIoU] ... [avgS]`` line formatted exactly as the reference appends
 it to ``evals.{trainName}.txt`` (``factory.parse_metric_line`` reads it);
 and for the corner families: peak AP50/AP75 per head and box AP50, the
-``[heatPeakAP50] ... [boxAP50]`` line; and for the cornerLegacy family the
-``[mIoU] ... [AP50]`` line of its embedding-paired boxes.
+``[heatPeakAP50] ... [boxAP50]`` line; for the cornerLegacy family the
+``[mIoU] ... [AP50]`` line of its embedding-paired boxes; and for the
+centerSize family the ``[mIoU] ... [peakAP75]`` line of its
+size-regressed boxes and peaks.
 
-Inputs are ``center_net_evaluation``'s, ``corner_net_evaluation``'s or
-``corner_net_legacy_evaluation``'s dicts, as tensors or numpy.
+Inputs are ``center_net_evaluation``'s, ``corner_net_evaluation``'s,
+``corner_net_legacy_evaluation``'s or ``center_net_size_evaluation``'s
+dicts, as tensors or numpy.
 """
 
 from __future__ import annotations
@@ -166,3 +169,29 @@ def expression_corner_net_legacy(batches: List[Dict]) -> str:
         average_precision_plots(ious, scores, denom, 0.5))
     return "[mIoU] {}    [AP50] {}".format(
         format(miou * 100, "-10.8f"), format(ap50 * 100, "-5.2f"))
+
+
+def expression_center_net_size(batches: List[Dict]) -> str:
+    """The centerSize report line (``scd_resnet_tpu/train/expression.py:
+    130-158``): the mean IoU of the size-regressed boxes and the peak AP
+    at 0.3/0.5/0.75, ``bestSnapshotMetric: "peakAP50"``'s source."""
+    ious, gts, scores = [], [], []
+    obj_num = 0.0
+    for batch in batches:
+        obj_num += float(_np(batch["objs"]).sum())
+        vals, mask = batch["iou"]
+        ious.append(_masked(vals, mask))
+        gt, sc, mask = batch["heat"]
+        gts.append(_masked(gt, mask))
+        scores.append(_masked(sc, mask))
+    ious = np.concatenate(ious) if ious else np.zeros(0)
+    gts = np.concatenate(gts) if gts else np.zeros(0)
+    scores = np.concatenate(scores) if scores else np.zeros(0)
+    denom = max(obj_num, float(len(gts)))
+    aps = {t: average_precision_all(average_precision_plots(
+        gts, scores, denom, t / 100.0)) for t in (30, 50, 75)}
+    return "[mIoU] {}    [peakAP30] {}    [peakAP50] {}    [peakAP75] {}" \
+        .format(format(_mean(ious) * 100, "-10.8f"),
+                format(aps[30] * 100, "-5.2f"),
+                format(aps[50] * 100, "-5.2f"),
+                format(aps[75] * 100, "-5.2f"))

@@ -19,7 +19,11 @@ registry's (reference trainer/model/*.py):
   from the last stack;
 - ``cornerLegacyHourglass``: the 2-stack associative-embedding
   CornerNet, family ``cornerLegacy``, trained on the legacy corner
-  targets (``corner_targets="legacy"``).
+  targets (``corner_targets="legacy"``);
+- ``centerRes10``: the size-regression CenterNet, full width, family
+  ``centerSize``, loss weight 1.0 (reference models/centerNet.py).
+
+These are all 21 profiles of the JAX registry.
 
 ``family`` names the deployment contract (``infer/wrapper.CONTRACTS``).
 Every profile carries its training pieces (``loss``, ``decode``,
@@ -39,11 +43,13 @@ from typing import Any, Callable, Dict, Optional
 
 from torch import nn
 
+from scd_resnet_tpu_torch.models import center_net as cns
 from scd_resnet_tpu_torch.models import center_net_offset as cno
 from scd_resnet_tpu_torch.models import corner_net as corner
 from scd_resnet_tpu_torch.models import corner_net_legacy as legacy
 from scd_resnet_tpu_torch.train.expression import (
     expression_center_net,
+    expression_center_net_size,
     expression_corner_net,
     expression_corner_net_legacy,
 )
@@ -172,6 +178,17 @@ register_model(ModelProfile(
     evaluation=legacy.corner_net_legacy_evaluation,
     expression=expression_corner_net_legacy,
     corner_targets="legacy",
+))
+
+register_model(ModelProfile(
+    name="centerRes10",
+    model_cls=cns.CenterNetSizeResidual,
+    model_params={"num_layers": 10, "dims": FULL},
+    family="centerSize",
+    loss=cns.CenterNetSizeLoss(1.0),
+    decode=cns.decode_center_net_size,
+    evaluation=cns.center_net_size_evaluation,
+    expression=expression_center_net_size,
 ))
 
 for _a in (1, 4, 8, 12, 16):

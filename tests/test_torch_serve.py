@@ -2,7 +2,8 @@
 (/analyse with PNG and raw bytes, /healthz, /metrics, /warmup), the
 ``serve`` CLI's refusal to start without CUDA unless ``--device cpu``,
 and subprocesses that block ``jax``, ``flax``, ``optax`` and
-``scd_resnet_tpu`` and still import the port, serve a clip and train
+``scd_resnet_tpu`` and still import the port (``trace``, ``test`` and
+the msgpack reader among its modules), serve a clip and train
 through ``python -m scd_resnet_tpu_torch.train`` (the legacy CornerNet
 with remat among the models)."""
 
@@ -133,7 +134,8 @@ LEAK_CHECK = textwrap.dedent("""
 SERVE_BLOCKED = BLOCK + textwrap.dedent("""
     import numpy as np
     import torch
-    from scd_resnet_tpu_torch import serve
+    from scd_resnet_tpu_torch import serve, test, trace
+    from scd_resnet_tpu_torch.core import msgpack
     from scd_resnet_tpu_torch.infer.server import InferenceService
     from scd_resnet_tpu_torch.infer.wrapper import make_wrapper
     from scd_resnet_tpu_torch.train.registry import get_model_profile
@@ -143,6 +145,7 @@ SERVE_BLOCKED = BLOCK + textwrap.dedent("""
                            "corner")
     slide = np.random.default_rng(0).integers(0, 255, (512, 512), np.uint8)
     detections = InferenceService(wrapper).analyse_gray(slide)
+    assert msgpack.unpackb(b"\\x81\\xa1a\\x01") == {"a": 1}
 """) + LEAK_CHECK + 'print("served", len(detections))\n'
 
 # python -m scd_resnet_tpu_torch.train <tiny config> --device cpu, for a

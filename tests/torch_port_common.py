@@ -191,3 +191,18 @@ def jax_draws(key, b: int, s: int):
         jax.random.bernoulli(k_flipv, 0.5, (b,)),
         jax.random.normal(k_jit, (b, 1, 1)),
         jax.random.normal(k_noise, (b, s, s)))))
+
+
+def write_jax_checkpoint(path: str, params, stats) -> None:
+    """The JAX package's checkpoint of ``params``/``stats`` with a real
+    optax Adam state (one update of a constant gradient), at step 1."""
+    import optax
+
+    from scd_resnet_tpu.core.checkpoint import save_checkpoint
+
+    adam = optax.adam(1e-3)
+    tree = jax.tree_util.tree_map(jnp.asarray, params)
+    opt_state = adam.init(tree)
+    grads = jax.tree_util.tree_map(lambda p: jnp.full_like(p, 0.01), tree)
+    _, opt_state = jax.jit(adam.update)(grads, opt_state)
+    save_checkpoint(path, params, stats, opt_state, 1)
