@@ -10,7 +10,8 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
 1. prints the toolchain and the card (``nvidia-smi`` name and power
    limit), builds every kernel source (``csrc/*.cu``, one ``nvcc`` each,
    all started together) and starts writing the seeded synthetic 512x512
-   training archive in a subprocess (cached under ``build/``);
+   training archive in a subprocess (cached under ``build/``) and phase
+   10's slides in another;
 2. holds the corner-pool kernel (``csrc/corner_pool.cu``) against its
    plain PyTorch version on the card in all four directions at the
    served shape (48, 128, 128, 128) float32, on random and on tie-heavy
@@ -175,9 +176,31 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
    statistics must have moved once on both devices (``num_batches_tracked``
    1: a remat recompute adds nothing) and agree within 1e-4 relative
    (1e-5 absolute);
-10. prints one ``{"kernels": [...]}`` line (each kernel's ``launches``
+10. preprocesses two seeded 3092x2056 slides with their label files
+   (``data/synthetic.make_slide_and_annotation``, written by a
+   subprocess started in phase 1) through ``python -m
+   scd_resnet_tpu_torch.preprocess -s 512 -m '244 252 248 252' -v`` on
+   the card: 3584x2560 padded slides, 16 rotations each in one batch, 560
+   clips a slide. It prints each slide's rotation batch in ms (CUDA
+   events; the first includes the process's CUDA start), the writes in
+   s, clips/s and the peak device memory, and checks the clip count and
+   the overlays. Slide 1's batch rotated again on the card and on the
+   CPU through the same helper must agree within
+   ``ops/augment.rotation_tolerance`` (the archive's first clip equal to
+   the card's to the bit), and its records within 8 float32 ulps of their
+   largest coordinate. Then exp74's widths train from that archive
+   (560 training rows, 560 validation clips) for 20 steps, validated
+   at 10 and 20, with ``debug`` and ``SCD_PROFILE_*`` around steps 12-13:
+   the overlays must be there, the trace must name the render's and the
+   stem pool backward's kernels, the losses be finite and falling, and
+   the launch counts (set to 0 just before the run, read just after) be
+   exactly K1 20 + 3 chunks and K5 20, nothing else: the newest path of
+   both. Last, ``DCNPooling`` forward and backward at x (2, 392, 128,
+   128) with 256 ROIs, pooled 7 with 4 x 4 samples, on the card against
+   the CPU within the float32 bounds that ``check_psroi`` derives;
+11. prints one ``{"kernels": [...]}`` line (each kernel's ``launches``
    from the newest path that runs it, named in ``main_path``, and its
-   counts on every path; the render once, with its offset set's numbers,
+   counts on every path; the render once, with its center set's numbers,
    and every map set's numbers and launches on the path that runs it
    under ``map_sets``), the card's name and power limit, and as the
    last line
@@ -202,6 +225,7 @@ import sys
 import threading
 import time
 import urllib.request
+import zipfile
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -216,6 +240,13 @@ from scd_resnet_tpu_torch.core.config import Configuration
 from scd_resnet_tpu_torch.core.device import reproducible_float32
 from scd_resnet_tpu_torch.data.archive import read_archive
 from scd_resnet_tpu_torch.data.dataset import VALIDATION_CHUNK, SCDDataset
+from scd_resnet_tpu_torch.data.preprocess import (
+    REPEAT_GEN,
+    _replicate_mirrors,
+    decode_annotations,
+    rotate_coords_batch,
+    rotate_images_batch,
+)
 from scd_resnet_tpu_torch.data.pipeline import (
     THRESHOLD_IOU,
     identity_draws,
@@ -239,11 +270,15 @@ from scd_resnet_tpu_torch.infer.wrapper import (
     load_wrapper,
     make_wrapper,
 )
+from scd_resnet_tpu_torch.models.deformable import DCNPooling
 from scd_resnet_tpu_torch.models.hourglass import StackHourglass
 from scd_resnet_tpu_torch.ops import corner_pool as cp
 from scd_resnet_tpu_torch.ops import dcn
 from scd_resnet_tpu_torch.ops import gaussian
 from scd_resnet_tpu_torch.ops import max_pool as mp
+from scd_resnet_tpu_torch.ops.augment import rotation_tolerance
+from scd_resnet_tpu_torch.ops.dcn import deform_psroi_pooling
+from scd_resnet_tpu_torch.ops.image import grayscale_preprocess
 from scd_resnet_tpu_torch.ops.radius import corner_threshold_radius
 from scd_resnet_tpu_torch.profile_kernels import device_kernels
 from scd_resnet_tpu_torch.profile_serve import device_ms
@@ -294,6 +329,18 @@ CLIP, HEAT, BATCH = 512, 128, 32  # exp74: clip side, heatmap side, batch
 # phase 9's sensitivity step
 PROBE_NUDGE = 1e-7
 TRAIN_ITERS, RESUME_ITERS, VALIDATE_EVERY = 40, 60, 20
+# phase 10: two slides of the lab's size with their labels (seeded), cut
+# with -s 512 and these margins into 3584 x 2560 padded slides (7 x 5
+# clips x 16 rotations each); exp74 trained from the archive for
+# PRE_STEPS steps, validated every PRE_VALIDATE_EVERY, traced over
+# PRE_PROFILE = (first step, steps), the trace holding these kernels
+PRE_SLIDES, PRE_OBJECTS, PRE_SEED = 2, 24, 3092
+PRE_MARGIN = "244 252 248 252"
+PRE_STEPS, PRE_VALIDATE_EVERY, PRE_PROFILE = 20, 10, (12, 2)
+PRE_TRACE_KERNELS = ("render_heatmaps_kernel", "max_pool_bwd_kernel")
+# DCNPooling on the card: x (batch, output_dim group^2, size, size), rois
+PSROI = {"batch": 2, "output_dim": 8, "group": 7, "pooled": 7, "size": 128,
+         "rois": 256, "samples": 4}
 # float32 operations of one (pixel, object) term inside an object's box:
 # dx, dy, dx*dx, dy*dy, their sum, the division, exp, the accumulation
 RENDER_OPS_PER_TERM = 8
@@ -408,12 +455,16 @@ def pool_entries(names, replaces, shape, results, bound_ms, library=None):
 
 # -- 3. the corner-pool backward against its plain version ----------------------
 
+def summation_bound_of(total_abs: torch.Tensor, terms: int) -> torch.Tensor:
+    """How far two float32 sums of ``terms`` terms in other orders may lie
+    apart: each is within (terms - 1) 2^-24 times the sum of the terms'
+    magnitudes of the exact sum (the recursive-summation bound)."""
+    return 2 * (terms - 1) * 2.0 ** -24 * total_abs
+
+
 def summation_bound(g: torch.Tensor, dim: int) -> torch.Tensor:
-    """How far two float32 suffix sums of ``g`` along ``dim`` in other
-    orders may lie apart: each is within (n - 1) 2^-24 sum|g| of the exact
-    sum (the recursive-summation bound)."""
-    n = g.shape[dim]
-    return 2 * (n - 1) * 2.0 ** -24 * g.abs().sum(dim, keepdim=True)
+    """:func:`summation_bound_of` for suffix sums of ``g`` along ``dim``."""
+    return summation_bound_of(g.abs().sum(dim, keepdim=True), g.shape[dim])
 
 
 def compare_pool_bwd(x, g, dim, reverse, what, zero_pattern=True) -> float:
@@ -1673,10 +1724,10 @@ def check_legacy_targets(locs: torch.Tensor, valid: torch.Tensor) -> None:
 
 
 def render_entry(render):
-    """K1's line: its numbers are the offset map set's (M = 1 at the
-    legacy corners, what the newest path that runs it, legacy_full,
-    launches), each map set's under ``map_sets``."""
-    main = render["map_sets"]["offset"]
+    """K1's line: its numbers are the center map set's (M = 1, what the
+    newest path that runs it, exp74 trained from the preprocessed
+    archive, launches), each map set's under ``map_sets``."""
+    main = render["map_sets"]["center"]
     return {
         "name": gaussian.KERNEL_NAME, "route": "cuda",
         "source": "scd_resnet_tpu_torch/csrc/render_heatmap.cu",
@@ -1700,16 +1751,17 @@ def write_config(path: str, values) -> str:
     return path
 
 
-def expected_launches(config, steps: int, n_val: int):
-    """What the train runs of ``config`` (a first run and its resume, each
-    rendering the validation set once) must launch, kernel by kernel: the
+def expected_launches(config, steps: int, n_val: int, runs: int = 2):
+    """What the train runs of ``config`` (``runs`` of them, a first run and
+    its resume by default, each rendering the validation set once) must
+    launch, kernel by kernel: the
     render once a step and a validation chunk (the legacy targets twice);
     the stem pool's backward once a step in a ResNet (the hourglass has
     no stem pool); a corner-pool model's pools in every forward, again in
     each step's recompute under remat (validation forwards record no
     gradient and recompute nothing), and their backward once a step; the
     DCN's gather likewise and its backward once a step."""
-    chunks = 2 * math.ceil(n_val / VALIDATION_CHUNK)
+    chunks = runs * math.ceil(n_val / VALIDATION_CHUNK)
     arch = config["modelName"]
     profile = get_model_profile(arch)
     expected = {name: 0 for name in cuda_build.LAUNCHES}
@@ -1938,6 +1990,331 @@ def step_card_vs_cpu(config: str, work: str, probe=None, prepare=None):
     return result
 
 
+# -- 10. preprocess slides on the card, then train from the archive ---------------
+
+def start_slides(slide_dir: str):
+    """Write phase 10's seeded 3092x2056 slides and their label files
+    (``data/synthetic.make_slide_and_annotation``) in a subprocess."""
+    shutil.rmtree(slide_dir, ignore_errors=True)
+    script = ("import sys\n"
+              "from scd_resnet_tpu_torch.data.synthetic import "
+              "make_slide_and_annotation\n"
+              "for i in range(1, {n} + 1):\n"
+              "    make_slide_and_annotation(sys.argv[1] + '/imgs', "
+              "sys.argv[1] + '/ann', i, width={w}, height={h}, "
+              "objects={o}, seed={seed})\n").format(
+                  n=PRE_SLIDES, w=SLIDE_W, h=SLIDE_H, o=PRE_OBJECTS,
+                  seed=PRE_SEED)
+    return subprocess.Popen([sys.executable, "-c", script, slide_dir],
+                            cwd=REPO, stdout=subprocess.DEVNULL)
+
+
+def padded_slide(slide_dir: str, index: int) -> np.ndarray:
+    """Slide ``index``'s grayscale reflect-padded by PRE_MARGIN, as
+    ``generate_archive`` pads it."""
+    left, top, right, bottom = (int(v) for v in PRE_MARGIN.split())
+    rgb = np.asarray(Image.open(os.path.join(slide_dir, "imgs",
+                                             "{}.png".format(index))))
+    return np.pad(grayscale_preprocess(rgb), ((top, bottom), (left, right)),
+                  mode="reflect").astype(np.float32)
+
+
+def check_preprocess(slide_dir: str, work: str, gpu_line: str,
+                     device: str = "cuda"):
+    """Phase 10's preprocessing: the CLI on the card, then one slide's
+    rotation batch on the card against the CPU (``device="cpu"``
+    rehearses it on the CPU alone)."""
+    shutil.rmtree(work, ignore_errors=True)
+    archive = os.path.join(work, "data", "scdx16p100.d")
+    os.makedirs(os.path.dirname(archive))
+    out = port_cli("preprocess", archive, "-i", os.path.join(slide_dir,
+                                                             "imgs"),
+                   "-a", os.path.join(slide_dir, "ann"), "-s", str(CLIP),
+                   "-m", PRE_MARGIN, "-v", "--device", device)
+    summary = json.loads(out.strip().splitlines()[-1])
+    pad_h, pad_w = padded_slide(slide_dir, 1).shape
+    clips = REPEAT_GEN * (pad_h // CLIP) * (pad_w // CLIP)
+    if summary["slides"] != PRE_SLIDES or summary["clips"] != \
+            PRE_SLIDES * clips or summary["device"] != device:
+        raise AssertionError("preprocessing wrote {}".format(summary))
+    overlays = os.listdir(archive + ".debug")
+    if len(overlays) != PRE_SLIDES * clips // REPEAT_GEN:
+        raise AssertionError("{} overlays, expected {}".format(
+            len(overlays), PRE_SLIDES * clips // REPEAT_GEN))
+    log("preprocessing on {} ({}): {} slides {}x{} padded to {}x{} "
+        "-> {} clips in {:.2f} s ({:.1f} clips/s); rotation batches (upload "
+        "+ {} rotations, CUDA events) {} ms; writes {} s; peak device "
+        "memory {} GB; {} overlays".format(
+            device, gpu_line, summary["slides"], SLIDE_W, SLIDE_H, pad_w,
+            pad_h,
+            summary["clips"], summary["seconds"], summary["clips_per_s"],
+            REPEAT_GEN, [round(s["rotation_ms"], 3)
+                         for s in summary["per_slide"]],
+            [round(s["write_s"], 3) for s in summary["per_slide"]],
+            summary["peak_device_memory_gb"], len(overlays)))
+
+    # slide 1's batch through the same helpers on the card and on the CPU
+    padded = padded_slide(slide_dir, 1)
+    angles = np.random.default_rng(42).uniform(0.0, 1.0, REPEAT_GEN) \
+        * 30.0 - 15.0
+    card = rotate_images_batch(padded, angles, torch.device(device))
+    t0 = time.perf_counter()
+    cpu = rotate_images_batch(padded, angles, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    err = float((card.cpu() - cpu).abs().max())
+    bound = rotation_tolerance(torch.from_numpy(padded), 15.0)
+    with zipfile.ZipFile(archive) as zf:
+        first = np.load(io.BytesIO(zf.read("samples/1.0.1.npy")))
+    same_as_archive = np.array_equal(first, card[0, :CLIP, :CLIP].cpu()
+                                     .numpy())
+    locs = np.asarray(_replicate_mirrors(
+        decode_annotations(os.path.join(slide_dir, "ann"), "1.png"),
+        SLIDE_W, SLIDE_H), np.float32)
+    card_locs, cpu_locs = (
+        rotate_coords_batch(locs, pad_w / 8.0, pad_h / 8.0, angles,
+                            torch.device(dev)) for dev in (device, "cpu"))
+    loc_err = float(np.abs(card_locs - cpu_locs).max())
+    # CUDA's float32 sin and cos are within 2 ulps, the CPU's within 1:
+    # each product of a coordinate (up to M cells) by them may move by 3
+    # ulps of M, and the sums around them round once each
+    loc_bound = 8 * float(np.spacing(np.abs(cpu_locs).max()))
+    log("slide 1's {} rotations, card against CPU ({:.1f} s there): max "
+        "abs {:.6g} (bound {:.6g}, rotation_tolerance); the archive's first "
+        "clip equals the card's rotation: {}; {} loc records, max abs "
+        "{:.3g} cells (bound {:.3g}: 8 ulps of the largest, {:.1f})".format(
+            REPEAT_GEN, cpu_s, err, bound, same_as_archive, len(locs),
+            loc_err, loc_bound, float(np.abs(cpu_locs).max())))
+    if not (err <= bound and loc_err <= loc_bound and same_as_archive):
+        raise AssertionError("the card's preprocessing differs from the "
+                             "CPU's")
+    summary.update(rotation_card_vs_cpu_max_abs=err,
+                   rotation_bound=bound, locs_card_vs_cpu_max_abs=loc_err,
+                   locs_bound=loc_bound, cpu_rotation_s=cpu_s)
+    return archive, summary
+
+
+def train_preprocessed(archive: str, work: str, device: str = "cuda",
+                       **overrides):
+    """Phase 10's training: exp74's widths for PRE_STEPS steps from the
+    archive the card wrote, with ``debug`` and a StepProfiler window; the
+    counts are set to 0 just before the run and read just after (on the
+    CPU, with ``overrides`` such as a small model, it rehearses the phase
+    up to the launch counts)."""
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    data_dir = os.path.dirname(archive)
+    trace_dir = os.path.join(work, "trace")
+    values = settings(EXP74, data_dir, work, iterations=PRE_STEPS,
+                      validation=PRE_VALIDATE_EVERY, snapshot=PRE_STEPS,
+                      debug=True, **overrides)
+    start, steps = PRE_PROFILE
+    env = {"SCD_PROFILE_DIR": trace_dir, "SCD_PROFILE_START": str(start),
+           "SCD_PROFILE_STEPS": str(steps)}
+    os.environ.update(env)
+    cuda_build.reset_launches()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        summary = train_cli.main([write_config(os.path.join(
+            work, "config.json"), values), "--device", device])
+    finally:
+        for key in env:
+            del os.environ[key]
+    launches = dict(cuda_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1024 ** 3 \
+        if device == "cuda" else float("nan")
+    with open(os.path.join(data_dir, "scdx16p100.split.json")) as f:
+        split = json.load(f)
+    n_val, n_train = len(split["validation"]), len(split["train16p100"])
+    expected = expected_launches(values, PRE_STEPS, n_val, runs=1)
+
+    name = values["trainName"]
+    results = os.path.join(work, "results")
+    losses = np.loadtxt(os.path.join(results, "losses.{}.{}.txt".format(
+        name, PRE_STEPS)), delimiter=",", ndmin=2)
+    evals = open(os.path.join(results, "evals.{}.txt".format(name))).read()
+    it_lines = [line for line in evals.splitlines() if line.startswith("[It]")]
+    overlays = sorted(os.listdir(os.path.join(results, "debug." + name)))
+    want_overlays = sorted("it{:06d}.clip{}.png".format(it, j)
+                           for it in range(PRE_VALIDATE_EVERY, PRE_STEPS + 1,
+                                           PRE_VALIDATE_EVERY)
+                           for j in range(4))
+    traces = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, traces[0])) as f:
+        trace_names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    trace_kernels = {kernel: sorted(n for n in trace_names if kernel in n)
+                     for kernel in PRE_TRACE_KERNELS}
+    focal = losses[:, 2]
+    log("exp74 from the preprocessed archive ({} training rows, {} "
+        "validation clips): {} steps, {:.1f} clips/s ({:.1f} ms a step, "
+        "validation, overlays and the trace included); focal {:.4f} (first "
+        "5) -> {:.4f} (last 5); [It] {}; peak memory {:.2f} GB; overlays {};"
+        " trace {} with {}; launches {} (expected {})".format(
+            n_train, n_val,
+            summary["steps"], summary["clips_per_s"],
+            summary["seconds"] * 1e3 / max(summary["steps"], 1),
+            focal[:5].mean(), focal[-5:].mean(),
+            it_lines[-1].strip() if it_lines else None, peak_gb, overlays,
+            traces, trace_kernels, launches, expected))
+    if losses.shape[0] != PRE_STEPS or not np.isfinite(losses).all():
+        raise AssertionError("loss rows missing or not finite")
+    if not focal[-5:].mean() < focal[:5].mean():
+        raise AssertionError("the focal loss did not fall")
+    if len(it_lines) != PRE_STEPS // PRE_VALIDATE_EVERY or any(
+            parse_metric_line(it_lines[-1], m) is None
+            for m in ("mIoU", "AP50", "avgS")):
+        raise AssertionError("[It] lines: {}".format(it_lines))
+    if overlays != want_overlays:
+        raise AssertionError("overlays {}, expected {}".format(
+            overlays, want_overlays))
+    if traces != ["trace.{}-{}.json".format(start, start + steps - 1)] or \
+            not all(trace_kernels.values()):
+        raise AssertionError("trace {} lacks a kernel: {}".format(
+            traces, trace_kernels))
+    if launches != expected:
+        raise AssertionError("exp74 from the preprocessed archive launched "
+                             "{}, expected {}".format(launches, expected))
+    return {"arch": values["modelName"], "steps": summary["steps"],
+            "clips_per_s": summary["clips_per_s"],
+            "seconds": summary["seconds"], "validation_clips": n_val,
+            "focal_first5": float(focal[:5].mean()),
+            "focal_last5": float(focal[-5:].mean()),
+            "it_line": it_lines[-1].strip(), "overlays": overlays,
+            "trace": traces[0], "trace_kernels": trace_kernels,
+            "launches": launches, "peak_memory_gb": peak_gb}
+
+
+def check_psroi(gpu_line: str, device: str = "cuda"):
+    """DCNPooling forward and backward on the card against the CPU, at
+    x (2, 392, 128, 128) (an S/4 map of 512^2 clips, 8 channels x 7^2
+    groups) and 256 ROIs, pooled 7 with 4 x 4 samples a bin.
+
+    The pooling op (``ops/dcn.deform_psroi_pooling``) is held to float32
+    summation bounds with the same displacements on both (the op computes
+    its sample positions in the same float32 operations on both devices,
+    so only the order of its sums differs): a bin sums at most 16 samples
+    x 4 corners (the sum of magnitudes is the op on |x|, its weights
+    being non-negative); an element of dx sums at most one term a (ROI,
+    sample, corner), their magnitudes summing to dx of |g| at |x|; an
+    element of dtrans one a (channel, sample, corner), their magnitudes
+    summing to at most 4 max|x| roi_w trans_std sum_c |g| (a sample's
+    corner weights change with its position at slopes summing to 2, and
+    a bin divides by its count of samples). The module's displacements pass
+    through three float32 matrix products (TF32 off): their error
+    propagates as |W| e + 2 (K - 1) 2^-24 (|W| |h| + |b|) through each
+    layer (ReLU does not widen it), and moves each sample by at most
+    trans_std roi_w e, so a bin by at most 2 D that (D: x's largest
+    neighbour difference)."""
+    gen = torch.Generator().manual_seed(392)
+    b, size, n = PSROI["batch"], PSROI["size"], PSROI["rois"]
+    out_dim, g, p, spp = (PSROI[k] for k in ("output_dim", "group", "pooled",
+                                             "samples"))
+    x = torch.randn((b, out_dim * g * g, size, size), generator=gen)
+    corner = torch.rand((n, 2), generator=gen) * (4 * size - 64)
+    extent = 16 + torch.rand((n, 2), generator=gen) * 240
+    rois = torch.cat([torch.randint(0, b, (n, 1), generator=gen).float(),
+                      corner, corner + extent], 1)
+    rois[:8, 1:] -= 48  # a few reach past the map's top-left
+    ct = torch.randn((n, out_dim, p, p), generator=gen)
+    module = DCNPooling(out_dim, pooled_size=p, group_size=g,
+                        spatial_scale=0.25, sample_per_part=spp)
+    with torch.no_grad():
+        module.fc[4].weight.normal_(0, 0.01, generator=gen)
+    pool_args = module.pool_args
+    runs = {}
+    for run, dev in (("card", device), ("cpu", "cpu")):
+        rd, ctd = rois.to(dev), ct.to(dev)
+        timer = None
+        # on the card a first call loads the kernels; the second is timed
+        for attempt in range(2 if dev == "cuda" else 1):
+            mod = copy.deepcopy(module).to(dev)
+            xd = x.detach().to(dev).requires_grad_(True)
+            if attempt:
+                torch.cuda.synchronize()
+                timer = [torch.cuda.Event(enable_timing=True)
+                         for _ in range(2)]
+                timer[0].record()
+            out = mod(xd, rd)
+            out.backward(ctd)
+            if timer:
+                timer[1].record()
+                torch.cuda.synchronize()
+        base = deform_psroi_pooling(xd.detach(), rd, None, no_trans=True,
+                                    **pool_args)
+        trans = mod.fc(base.permute(0, 2, 3, 1).reshape(n, -1)).reshape(
+            n, p, p, 2).permute(0, 3, 1, 2).detach()
+        runs[run] = {
+            "out": out.detach().cpu(), "dx": xd.grad.cpu(),
+            "base": base.cpu(), "trans": trans.cpu(),
+            "ms": timer[0].elapsed_time(timer[1]) if timer else None}
+    # the op alone with the CPU's displacements, forward and backward
+    shared = runs["cpu"]["trans"]
+    op = {}
+    for run, dev in (("card", device), ("cpu", "cpu")):
+        xd = x.detach().to(dev).requires_grad_(True)
+        td = shared.detach().to(dev).requires_grad_(True)
+        out = deform_psroi_pooling(xd, rois.to(dev), td, **pool_args)
+        out.backward(ct.to(dev))
+        op[run] = (out.detach().cpu(), xd.grad.cpu(), td.grad.cpu())
+    # the bounds, from the CPU's float32 quantities
+    abs_pool = deform_psroi_pooling(x.abs(), rois, shared, **pool_args)
+    # a bin's mean adds one rounding, its division, to its sum's
+    fwd_bound = summation_bound_of(abs_pool, 4 * spp * spp + 1)
+    xa = x.abs().requires_grad_(True)
+    deform_psroi_pooling(xa, rois, shared, **pool_args).backward(ct.abs())
+    dx_bound = summation_bound_of(xa.grad, n * 4 * spp * spp)
+    roi_wh = torch.maximum(rois[:, 3] - rois[:, 1], rois[:, 4] - rois[:, 2]
+                           ) * 0.25 + 0.25
+    per_bin = 4 * x.abs().max() * roi_wh[:, None, None] * \
+        pool_args["trans_std"] * ct.abs().sum(1)
+    dtrans_bound = summation_bound_of(per_bin, out_dim * 4 * spp * spp)[
+        :, None]
+    # the displacement branch's propagated error
+    h = runs["cpu"]["base"].permute(0, 2, 3, 1).reshape(n, -1).double()
+    err = summation_bound_of(
+        deform_psroi_pooling(x.abs(), rois, None, no_trans=True, **pool_args),
+        4 * spp * spp + 1).permute(0, 2, 3, 1).reshape(n, -1).double()
+    for layer in (module.fc[0], module.fc[2], module.fc[4]):
+        w = layer.weight.detach().double()
+        k = w.shape[1]
+        err = err @ w.abs().T + summation_bound_of(
+            h.abs() @ w.abs().T + layer.bias.detach().double().abs(), k)
+        h = torch.relu(h @ w.T + layer.bias.detach().double())
+    trans_bound = err.reshape(n, p, p, 2).permute(0, 3, 1, 2).float()
+    d = max(float((x[..., 1:, :] - x[..., :-1, :]).abs().max()),
+            float((x[..., :, 1:] - x[..., :, :-1]).abs().max()))
+    move = (2 * d * pool_args["trans_std"] * roi_wh[:, None, None]
+            * trans_bound.amax(1))[:, None]
+    out_bound = fwd_bound + move
+
+    def worst(got, want, bound):
+        excess = ((got - want).abs() - bound).max().item()
+        return float((got - want).abs().max()), excess
+
+    checks = {
+        "op_forward": worst(op["card"][0], op["cpu"][0], fwd_bound),
+        "op_dx": worst(op["card"][1], op["cpu"][1], dx_bound),
+        "op_dtrans": worst(op["card"][2], op["cpu"][2], dtrans_bound),
+        "trans": worst(runs["card"]["trans"], runs["cpu"]["trans"],
+                       trans_bound),
+        "module_forward": worst(runs["card"]["out"], runs["cpu"]["out"],
+                                out_bound)}
+    moved = float((runs["cpu"]["out"] - runs["cpu"]["base"]).abs().max())
+    log("DCNPooling x {} ROIs {} pooled {} x {} samples on the card ({}): "
+        "forward + backward {} ms (CUDA events, after a first call); card "
+        "against CPU, (max abs, max excess over the bound): {}; the "
+        "displacements move the output by up to {:.4g}".format(
+            tuple(x.shape), n, p, spp, gpu_line, runs["card"]["ms"], checks,
+            moved))
+    if not all(excess <= 0 for _, excess in checks.values()) or \
+            not moved > 0 or not torch.isfinite(runs["card"]["dx"]).all():
+        raise AssertionError("DCNPooling on the card differs from the CPU "
+                             "beyond its bounds: {}".format(checks))
+    return {"x": list(x.shape), "rois": n, "ms": runs["card"]["ms"],
+            "max_abs": {k: v[0] for k, v in checks.items()},
+            "output_moved_by_trans": moved}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1957,166 +2334,189 @@ def main() -> int:
     data_dir = os.path.join(build_dir, "data")
     archive = os.path.join(data_dir, "scdx16p100.d")
     writer = start_archive(archive)
-    phases = {}
-
-    def mark(name, t0):
-        phases[name] = time.perf_counter() - t0
-        return time.perf_counter()
-
+    slide_dir = os.path.join(build_dir, "slides")
+    slides_proc = start_slides(slide_dir)
     try:
-        # 1. build every kernel from the checkout's sources, in parallel
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-            list(pool.map(cuda_build.build, KERNEL_SOURCES))
-        for source in KERNEL_SOURCES:
-            cuda_build.load(source)
-        log("built {} in {:.1f}s; ptxas:\n{}".format(
-            ", ".join(KERNEL_SOURCES), time.perf_counter() - t0,
-            "\n".join(cuda_build.build_log(s) for s in KERNEL_SOURCES)))
-        t0 = mark("build", t0)
+        phases = {}
 
-        # 2-5. the corner-pool kernels, the stem pool's backward and the
-        # deformable gather against their plain versions
-        pool_results, pool_bound = check_corner_pool()
-        bwd_results, bwd_bound = check_corner_pool_bwd()
-        stem = check_max_pool_bwd()
-        dcn_fwd, dcn_bwd, dcn_kinds = check_dcn_gather()
-        t0 = mark("kernel_checks", t0)
+        def mark(name, t0):
+            phases[name] = time.perf_counter() - t0
+            return time.perf_counter()
 
-        # 6. serve the three models; each resets the counts just before
-        # its requests
-        slide = synthetic_slide(SLIDE_H, SLIDE_W, seed=2056)
-        served = [serve_model(arch, seed, slide, build_dir, gpu_line)
-                  for arch, seed in (("cornerCPoolRes10", 10),
-                                     ("centerOffsetRes10", 11),
-                                     ("centerOffsetRes10dcn", 12),
-                                     ("centerOffsetHourglass2", 13),
-                                     ("cornerLegacyHourglass", 14),
-                                     ("centerRes10", 15))]
-        t0 = mark("serving", t0)
-        # 6, continued: the served checkpoints streamed, pipelined, traced
-        # and served by the test CLI
-        streamed, stream_counts = check_streaming(slide, build_dir)
-        t0 = mark("streaming_and_many", t0)
-        pngs = write_pngs(slide, build_dir)
-        bundles = [check_bundle(arch, slide, pngs[0], build_dir)
-                   for arch in ("cornerCPoolRes10", "centerOffsetRes10dcn")]
-        t0 = mark("bundles", t0)
-        test_c = check_test_checkpoint(pngs, build_dir)
-        t0 = mark("test_checkpoint", t0)
-        finish_archive(writer, archive)
+        try:
+            # 1. build every kernel from the checkout's sources, in parallel
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+                list(pool.map(cuda_build.build, KERNEL_SOURCES))
+            for source in KERNEL_SOURCES:
+                cuda_build.load(source)
+            log("built {} in {:.1f}s; ptxas:\n{}".format(
+                ", ".join(KERNEL_SOURCES), time.perf_counter() - t0,
+                "\n".join(cuda_build.build_log(s) for s in KERNEL_SOURCES)))
+            t0 = mark("build", t0)
+
+            # 2-5. the corner-pool kernels, the stem pool's backward and the
+            # deformable gather against their plain versions
+            pool_results, pool_bound = check_corner_pool()
+            bwd_results, bwd_bound = check_corner_pool_bwd()
+            stem = check_max_pool_bwd()
+            dcn_fwd, dcn_bwd, dcn_kinds = check_dcn_gather()
+            t0 = mark("kernel_checks", t0)
+
+            # 6. serve the three models; each resets the counts just before
+            # its requests
+            slide = synthetic_slide(SLIDE_H, SLIDE_W, seed=2056)
+            served = [serve_model(arch, seed, slide, build_dir, gpu_line)
+                      for arch, seed in (("cornerCPoolRes10", 10),
+                                         ("centerOffsetRes10", 11),
+                                         ("centerOffsetRes10dcn", 12),
+                                         ("centerOffsetHourglass2", 13),
+                                         ("cornerLegacyHourglass", 14),
+                                         ("centerRes10", 15))]
+            t0 = mark("serving", t0)
+            # 6, continued: the served checkpoints streamed, pipelined, traced
+            # and served by the test CLI
+            streamed, stream_counts = check_streaming(slide, build_dir)
+            t0 = mark("streaming_and_many", t0)
+            pngs = write_pngs(slide, build_dir)
+            bundles = [check_bundle(arch, slide, pngs[0], build_dir)
+                       for arch in ("cornerCPoolRes10", "centerOffsetRes10dcn")]
+            t0 = mark("bundles", t0)
+            test_c = check_test_checkpoint(pngs, build_dir)
+            t0 = mark("test_checkpoint", t0)
+            finish_archive(writer, archive)
+        finally:
+            if writer is not None and writer.poll() is None:
+                writer.kill()
+                writer.wait()
+
+        # 7. the render kernel's map sets against their plain versions
+        render = check_render(archive)
+        t0 = mark("render_check", t0)
+        # 8. train exp74, cpool_best and dcn_full and resume each; the counts
+        # are reset inside, just before each first run
+        trained = [train_config(EXP74, data_dir, os.path.join(build_dir, "exp74"),
+                                ("mIoU", "AP50", "avgS")),
+                   train_config(CPOOL_BEST, data_dir,
+                                os.path.join(build_dir, "cpool_best"),
+                                ("boxAP50",)),
+                   train_config(DCN_FULL, data_dir,
+                                os.path.join(build_dir, "dcn_full"),
+                                ("mIoU", "AP50", "avgS")),
+                   train_config(HOURGLASS2_BEST, data_dir,
+                                os.path.join(build_dir, "hourglass2_best"),
+                                ("mIoU", "AP50", "avgS")),
+                   train_config(LEGACY_FULL, data_dir,
+                                os.path.join(build_dir, "legacy_full"),
+                                ("AP50", "mIoU")),
+                   train_config(CENTERSIZE_FULL, data_dir,
+                                os.path.join(build_dir, "centersize_full"),
+                                ("peakAP50", "mIoU"))]
+        t0 = mark("training", t0)
+        # 9. one float32 step on the card and on the CPU, for each model
+        steps = [step_card_vs_cpu(EXP74, os.path.join(build_dir, "step_exp74")),
+                 step_card_vs_cpu(CPOOL_BEST, os.path.join(build_dir,
+                                                           "step_cpool"),
+                                  probe=("tl_head.pool_block.branch1.conv.weight",
+                                         slice(None))),
+                 step_card_vs_cpu(DCN_FULL, os.path.join(build_dir, "step_dcn"),
+                                  probe=("deconv_dcn.conv_offset_mask.weight",
+                                         slice(0, 2 * 9)),
+                                  prepare=fractional_offsets),
+                 step_card_vs_cpu(HOURGLASS2_BEST,
+                                  os.path.join(build_dir, "step_hourglass2")),
+                 step_card_vs_cpu(LEGACY_FULL, os.path.join(build_dir,
+                                                            "step_legacy"),
+                                  probe=("tl.0.pool_block.branch1.conv.weight",
+                                         slice(None))),
+                 step_card_vs_cpu(CENTERSIZE_FULL,
+                                  os.path.join(build_dir, "step_centersize"))]
+        t0 = mark("step_card_vs_cpu", t0)
+        # 10. preprocess the slides on the card, train exp74 from the archive,
+        # and DCNPooling on the card
+        if slides_proc.wait(timeout=900) != 0:
+            raise RuntimeError("writing the slides failed ({})".format(
+                slides_proc.returncode))
+        pre_archive, preprocessed = check_preprocess(
+            slide_dir, os.path.join(build_dir, "preprocess"), gpu_line)
+        t0 = mark("preprocess", t0)
+        pre_trained = train_preprocessed(pre_archive, os.path.join(
+            build_dir, "train_preprocessed"))
+        t0 = mark("train_preprocessed", t0)
+        psroi = check_psroi(gpu_line)
+        mark("psroi", t0)
+
+        # 11. results: every path's counts, the serving paths (oldest first)
+        # before the training paths (oldest first); each kernel's launches
+        # are those of the newest path that runs it
+        paths = {"serve_cornerCPoolRes10": served[0]["launches"],
+                 "serve_centerOffsetRes10dcn": served[2]["launches"],
+                 "serve_cornerLegacyHourglass": served[4]["launches"],
+                 "serve_centerRes10": served[5]["launches"],
+                 "stream_cornerCPoolRes10": stream_counts,
+                 "bundle_cornerCPoolRes10": bundles[0][1],
+                 "bundle_centerOffsetRes10dcn": bundles[1][1],
+                 "train_exp74": trained[0]["launches"],
+                 "train_cpool_best": trained[1]["launches"],
+                 "train_dcn_full": trained[2]["launches"],
+                 "train_hourglass2_best": trained[3]["launches"],
+                 "train_legacy_full": trained[4]["launches"],
+                 "train_centersize_full": trained[5]["launches"],
+                 "train_preprocessed_exp74": pre_trained["launches"]}
+        # the render's map sets by the paths that launch them: M = 1 center
+        # (exp74, dcn_full, hourglass2_best, centersize_full, exp74 from the
+        # preprocessed archive), M = 3 (cpool_best), the offset set twice a
+        # batch transform (legacy_full)
+        for set_name, path in (("center", "train_preprocessed_exp74"),
+                               ("center+tl+br", "train_cpool_best"),
+                               ("offset", "train_legacy_full")):
+            render["map_sets"][set_name]["main_path"] = path
+            render["map_sets"][set_name]["launches"] = \
+                paths[path][gaussian.KERNEL_NAME]
+        kernels = ([render_entry(render)]
+                   + pool_entries(cp.KERNEL_NAMES,
+                                  "scd_resnet_tpu/ops/pallas_kernels.py:260",
+                                  POOL_SHAPE, pool_results, pool_bound,
+                                  library=True)
+                   + pool_entries(cp.BWD_KERNEL_NAMES,
+                                  "scd_resnet_tpu/ops/pallas_kernels.py:344",
+                                  POOL_TRAIN_SHAPE, bwd_results, bwd_bound)
+                   + [max_pool_bwd_entry(stem)]
+                   + dcn_entries(dcn_fwd, dcn_bwd, dcn_kinds))
+        for entry in kernels:
+            entry["launches_by_path"] = {path: counts[entry["name"]]
+                                         for path, counts in paths.items()}
+            runs = [path for path, counts in paths.items()
+                    if counts[entry["name"]] > 0]
+            if not runs:
+                raise AssertionError("no path launched {}".format(entry["name"]))
+            entry["main_path"] = runs[-1]
+            entry["launches"] = paths[runs[-1]][entry["name"]]
+        for entry in kernels:
+            if entry["name"] in cp.KERNEL_NAMES.values():
+                direction = [d for d, (dd, _) in DIRECTIONS.items()
+                             if cp.KERNEL_NAMES[dd] == entry["name"]]
+                entry["ms_train_shape"] = sum(
+                    bwd_results[d]["forward_ms"] for d in direction) / len(
+                        direction)
+        phases["total"] = time.perf_counter() - t_start
+        log(json.dumps({"serving": served, "streaming": streamed,
+                        "bundles": [b[0] for b in bundles],
+                        "test_checkpoint": test_c, "training": trained,
+                        "step_card_vs_cpu": steps, "preprocess": preprocessed,
+                        "train_preprocessed": pre_trained, "psroi": psroi,
+                        "card": gpu_line,
+                        "seconds": phases}))
+        log(json.dumps({"kernels": kernels}))
+        log(gpu_line)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     finally:
-        if writer is not None and writer.poll() is None:
-            writer.kill()
-            writer.wait()
-
-    # 7. the render kernel's map sets against their plain versions
-    render = check_render(archive)
-    t0 = mark("render_check", t0)
-    # 8. train exp74, cpool_best and dcn_full and resume each; the counts
-    # are reset inside, just before each first run
-    trained = [train_config(EXP74, data_dir, os.path.join(build_dir, "exp74"),
-                            ("mIoU", "AP50", "avgS")),
-               train_config(CPOOL_BEST, data_dir,
-                            os.path.join(build_dir, "cpool_best"),
-                            ("boxAP50",)),
-               train_config(DCN_FULL, data_dir,
-                            os.path.join(build_dir, "dcn_full"),
-                            ("mIoU", "AP50", "avgS")),
-               train_config(HOURGLASS2_BEST, data_dir,
-                            os.path.join(build_dir, "hourglass2_best"),
-                            ("mIoU", "AP50", "avgS")),
-               train_config(LEGACY_FULL, data_dir,
-                            os.path.join(build_dir, "legacy_full"),
-                            ("AP50", "mIoU")),
-               train_config(CENTERSIZE_FULL, data_dir,
-                            os.path.join(build_dir, "centersize_full"),
-                            ("peakAP50", "mIoU"))]
-    t0 = mark("training", t0)
-    # 9. one float32 step on the card and on the CPU, for each model
-    steps = [step_card_vs_cpu(EXP74, os.path.join(build_dir, "step_exp74")),
-             step_card_vs_cpu(CPOOL_BEST, os.path.join(build_dir,
-                                                       "step_cpool"),
-                              probe=("tl_head.pool_block.branch1.conv.weight",
-                                     slice(None))),
-             step_card_vs_cpu(DCN_FULL, os.path.join(build_dir, "step_dcn"),
-                              probe=("deconv_dcn.conv_offset_mask.weight",
-                                     slice(0, 2 * 9)),
-                              prepare=fractional_offsets),
-             step_card_vs_cpu(HOURGLASS2_BEST,
-                              os.path.join(build_dir, "step_hourglass2")),
-             step_card_vs_cpu(LEGACY_FULL, os.path.join(build_dir,
-                                                        "step_legacy"),
-                              probe=("tl.0.pool_block.branch1.conv.weight",
-                                     slice(None))),
-             step_card_vs_cpu(CENTERSIZE_FULL,
-                              os.path.join(build_dir, "step_centersize"))]
-    mark("step_card_vs_cpu", t0)
-
-    # 10. results: every path's counts, the serving paths (oldest first)
-    # before the training paths (oldest first); each kernel's launches
-    # are those of the newest path that runs it
-    paths = {"serve_cornerCPoolRes10": served[0]["launches"],
-             "serve_centerOffsetRes10dcn": served[2]["launches"],
-             "serve_cornerLegacyHourglass": served[4]["launches"],
-             "serve_centerRes10": served[5]["launches"],
-             "stream_cornerCPoolRes10": stream_counts,
-             "bundle_cornerCPoolRes10": bundles[0][1],
-             "bundle_centerOffsetRes10dcn": bundles[1][1],
-             "train_exp74": trained[0]["launches"],
-             "train_cpool_best": trained[1]["launches"],
-             "train_dcn_full": trained[2]["launches"],
-             "train_hourglass2_best": trained[3]["launches"],
-             "train_legacy_full": trained[4]["launches"],
-             "train_centersize_full": trained[5]["launches"]}
-    # the render's map sets by the paths that launch them: M = 1 center
-    # (exp74, dcn_full, hourglass2_best, centersize_full), M = 3
-    # (cpool_best), the offset
-    # set twice a batch transform (legacy_full)
-    for set_name, path in (("center", "train_centersize_full"),
-                           ("center+tl+br", "train_cpool_best"),
-                           ("offset", "train_legacy_full")):
-        render["map_sets"][set_name]["main_path"] = path
-        render["map_sets"][set_name]["launches"] = \
-            paths[path][gaussian.KERNEL_NAME]
-    kernels = ([render_entry(render)]
-               + pool_entries(cp.KERNEL_NAMES,
-                              "scd_resnet_tpu/ops/pallas_kernels.py:260",
-                              POOL_SHAPE, pool_results, pool_bound,
-                              library=True)
-               + pool_entries(cp.BWD_KERNEL_NAMES,
-                              "scd_resnet_tpu/ops/pallas_kernels.py:344",
-                              POOL_TRAIN_SHAPE, bwd_results, bwd_bound)
-               + [max_pool_bwd_entry(stem)]
-               + dcn_entries(dcn_fwd, dcn_bwd, dcn_kinds))
-    for entry in kernels:
-        entry["launches_by_path"] = {path: counts[entry["name"]]
-                                     for path, counts in paths.items()}
-        runs = [path for path, counts in paths.items()
-                if counts[entry["name"]] > 0]
-        if not runs:
-            raise AssertionError("no path launched {}".format(entry["name"]))
-        entry["main_path"] = runs[-1]
-        entry["launches"] = paths[runs[-1]][entry["name"]]
-    for entry in kernels:
-        if entry["name"] in cp.KERNEL_NAMES.values():
-            direction = [d for d, (dd, _) in DIRECTIONS.items()
-                         if cp.KERNEL_NAMES[dd] == entry["name"]]
-            entry["ms_train_shape"] = sum(
-                bwd_results[d]["forward_ms"] for d in direction) / len(
-                    direction)
-    phases["total"] = time.perf_counter() - t_start
-    log(json.dumps({"serving": served, "streaming": streamed,
-                    "bundles": [b[0] for b in bundles],
-                    "test_checkpoint": test_c, "training": trained,
-                    "step_card_vs_cpu": steps, "card": gpu_line,
-                    "seconds": phases}))
-    log(json.dumps({"kernels": kernels}))
-    log(gpu_line)
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+        if slides_proc.poll() is None:
+            slides_proc.kill()
+            slides_proc.wait()
 
 
 if __name__ == "__main__":

@@ -10,6 +10,10 @@ the caller passes ``device="cpu"``.
 Ported so far: every model profile of the JAX registry serves
 (``python -m scd_resnet_tpu_torch.serve``; the slide CLI ``.test`` and
 the exporter ``.trace``) and trains (``python -m
-scd_resnet_tpu_torch.train``), with every Pallas kernel of the JAX
-package as a hand-written CUDA kernel (``csrc/*.cu``).
+scd_resnet_tpu_torch.train``, with ``-debug`` overlays and
+``SCD_PROFILE_*`` traces), slides and their label files become training
+archives on the card (``python -m scd_resnet_tpu_torch.preprocess``),
+and every Pallas kernel of the JAX package is a hand-written CUDA kernel
+(``csrc/*.cu``). Not yet ported: data parallelism, the hourglass
+pipeline schedule and mesh serving.
 """

@@ -46,6 +46,10 @@ shortcut ``Conv_{2s}``/``BatchNorm_{2s}``, the previous-prediction
 ``cornerLegacyHourglass`` keeps it at the root, with ``tl_{s}``/``br_{s}``
 branches of ``CornerPoolBlock_0`` and the heads ``ConvBlock_{0,1,2}`` +
 ``heat``/``tag``/``regr``.
+
+``dcn_pooling_state_dict(params)`` carries a flax ``DCNPooling``'s
+``Dense_0..2`` (kernels (in, out), transposed) into the port's
+``DCNPooling.fc.{0,2,4}``.
 """
 
 from __future__ import annotations
@@ -279,4 +283,16 @@ def state_dict_from_flax(arch: str, params: Mapping[str, Any],
     else:
         _terminal_heads(root, profile.num_layers,
                         TERMINAL_HEADS[profile.model_cls])
+    return sd
+
+
+def dcn_pooling_state_dict(params: Mapping[str, Any]) -> StateDict:
+    """The port ``DCNPooling``'s state dict from a flax ``DCNPooling``'s
+    ``params``: ``Dense_j`` -> ``fc.{2 j}`` with the kernel transposed."""
+    sd: StateDict = {}
+    for j in range(3):
+        dense = params["Dense_{}".format(j)]
+        sd["fc.{}.weight".format(2 * j)] = _tensor(
+            np.asarray(dense["kernel"]).T)
+        sd["fc.{}.bias".format(2 * j)] = _tensor(dense["bias"])
     return sd

@@ -25,7 +25,9 @@ its kernel or raises; for a CPU tensor each computes its plain version.
 There is one route: the JAX package's onehot and Pallas lowerings (and
 its ``SCD_DCN_METHOD`` switch) compute the same function and stay on the
 JAX side; the tests hold the plain versions here against all three.
-PSROI pooling is not ported yet.
+
+:func:`deform_psroi_pooling` (l.220-321) is plain PyTorch: the JAX
+function computes it in XLA ops, with no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from __future__ import annotations
 import ctypes
 from typing import List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from scd_resnet_tpu_torch.core import cuda_build
@@ -368,3 +371,111 @@ def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     if bias is not None:
         out = out + bias
     return out.reshape(b, ho, wo, cout).permute(0, 3, 1, 2).contiguous()
+
+
+def deform_psroi_pooling(x: torch.Tensor, rois: torch.Tensor,
+                         trans: Optional[torch.Tensor], *, output_dim: int,
+                         group_size: int, pooled_size: int,
+                         spatial_scale: float, trans_std: float = 0.1,
+                         sample_per_part: int = 4,
+                         part_size: Optional[int] = None,
+                         no_trans: bool = False) -> torch.Tensor:
+    """Deformable position-sensitive ROI pooling (the JAX
+    ``deform_psroi_pooling``, l.220; reference dcn.roipool.cpp:59-144).
+
+    Args:
+      x: (B, C, H, W) with C = output_dim * group_size^2.
+      rois: (N, 5) rows ``[batch_index, x1, y1, x2, y2]`` in input pixels.
+      trans: (N, 2, part_size, part_size) normalised bin displacements,
+        channel 0 dx and 1 dy, as the reference lays them out (unused
+        with ``no_trans``).
+
+    Returns (N, output_dim, pooled_size, pooled_size): bin (i, j) of
+    channel ``ctop`` is the mean of the in-bounds bilinear samples, on a
+    ``sample_per_part``-square grid from the bin's corner moved by its
+    part's displacement, of input channel ``(ctop g + gh) g + gw`` with
+    (gh, gw) the bin's group cell. Plain PyTorch gathers: the gradient to
+    x and trans is autograd's, as the JAX function's is XLA's."""
+    b, c, h, w = x.shape
+    part_size = part_size or pooled_size
+    n, p, g = rois.shape[0], pooled_size, group_size
+    device = x.device
+
+    def div(a: torch.Tensor, d: int) -> torch.Tensor:
+        # a tensor divisor: CUDA divides by a Python number as a product
+        # with its reciprocal, the CPU and XLA divide
+        return a / torch.tensor(float(d), device=device)
+
+    batch_idx = rois[:, 0].long()
+    x1 = torch.round(rois[:, 1]) * spatial_scale - 0.5
+    y1 = torch.round(rois[:, 2]) * spatial_scale - 0.5
+    x2 = (torch.round(rois[:, 3]) + 1.0) * spatial_scale - 0.5
+    y2 = (torch.round(rois[:, 4]) + 1.0) * spatial_scale - 0.5
+    roi_w = torch.clamp(x2 - x1, min=0.1)
+    roi_h = torch.clamp(y2 - y1, min=0.1)
+    bin_w = div(roi_w, p)
+    bin_h = div(roi_h, p)
+    sub_w = div(bin_w, sample_per_part)
+    sub_h = div(bin_h, sample_per_part)
+
+    # the bins' parts and group cells in the JAX function's float32
+    # arithmetic, on the host
+    ip = np.arange(p, dtype=np.float32)
+    part = torch.from_numpy(np.floor(ip / np.float32(p) * np.float32(
+        part_size)).astype(np.int64)).to(device)
+    cell = torch.from_numpy(np.clip(np.floor(
+        (np.arange(p) * g).astype(np.float32) / np.float32(p)), 0,
+        g - 1).astype(np.int64)).to(device)
+    bins = torch.arange(p, device=device)
+    if no_trans:
+        trans_x = torch.zeros((n, p, p), device=device)
+        trans_y = torch.zeros((n, p, p), device=device)
+    else:
+        trans_x = (trans[:, 0] * trans_std)[:, part][:, :, part]
+        trans_y = (trans[:, 1] * trans_std)[:, part][:, :, part]
+    wstart = (bins[None, None, :] * bin_w[:, None, None] + x1[:, None, None]
+              + trans_x * roi_w[:, None, None])
+    hstart = (bins[None, :, None] * bin_h[:, None, None] + y1[:, None, None]
+              + trans_y * roi_h[:, None, None])
+
+    # sample positions (N, p, p, s, 1) and (N, p, p, 1, s) at i * sub_bin
+    s = torch.arange(sample_per_part, dtype=torch.float32, device=device)
+    sy = hstart[..., None, None] + s[:, None] * sub_h[:, None, None, None,
+                                                      None]
+    sx = wstart[..., None, None] + s[None, :] * sub_w[:, None, None, None,
+                                                      None]
+    inside = (sx >= -0.5) & (sx <= w - 0.5) & (sy >= -0.5) & (sy <= h - 0.5)
+    sy = torch.clamp(sy, 0.0, h - 1.0)
+    sx = torch.clamp(sx, 0.0, w - 1.0)
+
+    # bin (i, j) of channel ctop reads input channel (ctop g + gh) g + gw;
+    # its plane's offset in x, (N, p, p, 1, 1, output_dim)
+    group = cell[:, None] * g + cell[None, :]
+    channel = (torch.arange(output_dim, device=device) * (g * g))[
+        None, None, :] + group[:, :, None]
+    plane = (batch_idx[:, None, None, None] * c + channel[None]) * (h * w)
+    plane = plane[:, :, :, None, None, :]
+    flat_x = x.reshape(-1)
+
+    y0 = torch.floor(sy)
+    x0 = torch.floor(sx)
+    ly = sy - y0
+    lx = sx - x0
+    total = 0
+    for dy, dx in CORNERS:
+        yi, xi = y0 + dy, x0 + dx
+        weight = (ly if dy else 1 - ly) * (lx if dx else 1 - lx)
+        # sy and sx are clipped, so only the upper corners can leave the map
+        valid = (yi < h) & (xi < w)
+        pixel = (torch.clamp(yi, max=h - 1) * w
+                 + torch.clamp(xi, max=w - 1)).long()[..., None]
+        # one gather a corner, (N, p, p, s, s, output_dim); its gradient
+        # is a scatter-add into x
+        index = plane + pixel
+        total = total + flat_x.gather(0, index.reshape(-1)).reshape(
+            index.shape) * (weight * valid)[..., None]
+    count = inside.sum(dim=(3, 4))[..., None]
+    pooled = (total * inside[..., None]).sum(dim=(3, 4)) / torch.clamp(
+        count, min=1)
+    pooled = torch.where(count > 0, pooled, torch.zeros_like(pooled))
+    return pooled.permute(0, 3, 1, 2)

@@ -1,7 +1,8 @@
 """Grayscale conversion and reflect padding for served slides.
 
 Counterpart of ``scd_resnet_tpu/ops/image.py`` (the port keeps its own
-copy). The reference's inference grayscale is
+copy). Preprocessing's grayscale is ``0.30 R + 0.59 G + 0.11 B``
+unrounded (reference scdManual.py:46-56). The inference grayscale is
 ``round(0.1140 R + 0.5870 G + 0.2989 B)`` — BGR-ordered weights applied
 to RGB channels, rounded (reference test.py:21-33). Its served pad is
 symmetric on x (edge repeated, cv2 BORDER_REFLECT) and reflect101 on y
@@ -17,6 +18,14 @@ from __future__ import annotations
 import numpy as np
 
 
+def grayscale_preprocess(rgb: np.ndarray) -> np.ndarray:
+    """The grayscale of training archives, ``0.30 R + 0.59 G + 0.11 B``
+    unrounded, as float32 (reference scdManual.py:46-56)."""
+    rgb = np.asarray(rgb)
+    return (0.30 * rgb[..., 0] + 0.59 * rgb[..., 1]
+            + 0.11 * rgb[..., 2]).astype(np.float32)
+
+
 def grayscale_inference_u8(rgb: np.ndarray) -> np.ndarray:
     """Inference grayscale of an (..., 3) RGB array as uint8 (the rounded
     formula's range is [0, 255]; numpy rounds half to even)."""
@@ -29,9 +38,11 @@ def grayscale_inference_u8(rgb: np.ndarray) -> np.ndarray:
 def reflect_index(n: int, before: int, after: int, mode: str) -> np.ndarray:
     """Source indices of an axis of length ``n`` padded by
     ``(before, after)``, as ``np.pad`` computes them for ``mode``
-    ``"reflect101"`` (numpy 'reflect') or ``"symmetric"``, any pad
-    width."""
+    ``"reflect101"`` (numpy 'reflect'), ``"symmetric"`` or ``"edge"``,
+    any pad width."""
     i = np.arange(-before, n + after)
+    if mode == "edge":
+        return np.clip(i, 0, n - 1)
     if mode == "reflect101":
         if n == 1:
             return np.zeros_like(i)

@@ -125,27 +125,38 @@ def device_kernels(fn: Callable[[], object], calls: int) -> Dict:
     two warm-up calls. The profiler records two rounds of ``calls`` and
     keeps the second: at the start of a trace CUPTI can miss a kernel's
     record (one of 50 render launches went missing once on the H100), so
-    the first round only warms the tracer up."""
+    the first round only warms the tracer up. CUPTI has also dropped
+    records inside the kept round (two of 50 once): the calls of ``fn``
+    are alike, so a kernel whose records are not a whole multiple of
+    ``calls`` lost some, and the measurement is taken again, up to three
+    times. A lost record only lowers a count, so a complete round is
+    never one that hides an extra launch."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA],
-            schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
-                                             repeat=1)) as prof:
-        for _ in range(2):
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    kernels: Dict[str, Dict[str, float]] = {}
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        # names that agree in their first 120 characters share a line
-        line = kernels.setdefault(evt.key[:120], {"ms": 0.0, "launches": 0})
-        line["ms"] += evt.self_device_time_total / 1e3 / calls
-        line["launches"] += evt.count / calls
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA],
+                schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                                 repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        kernels: Dict[str, Dict[str, float]] = {}
+        complete = True
+        for evt in prof.key_averages():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            complete = complete and evt.count % calls == 0
+            # names that agree in their first 120 characters share a line
+            line = kernels.setdefault(evt.key[:120],
+                                      {"ms": 0.0, "launches": 0})
+            line["ms"] += evt.self_device_time_total / 1e3 / calls
+            line["launches"] += evt.count / calls
+        if complete:
+            break
     return {"ms": sum(k["ms"] for k in kernels.values()),
             "kernels": kernels}
 

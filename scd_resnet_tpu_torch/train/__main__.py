@@ -1,6 +1,7 @@
 """Train a model from an experiment configuration.
 
     python -m scd_resnet_tpu_torch.train <config.json> [--device cuda|cpu]
+        [-debug]
 
 Counterpart of the root ``train.py`` (reference train.py:31-110). The
 configuration has the ``exp.json`` schema (``configs/exp74.json`` is the
@@ -10,7 +11,9 @@ to ``dirResult`` (loss CSVs, ``evals.{trainName}.txt``,
 ``telemetry.{trainName}.jsonl``), checkpoints to ``dirTemp``; resume by
 setting ``currentIter`` to a snapshot's iteration. cuDNN's settings follow
 the configuration's ``precision`` for the run and are restored after it
-(``core/device.training_backends``).
+(``core/device.training_backends``). ``-debug`` (or ``"debug": true`` in
+the configuration) writes overlay PNGs of the last trained batch to
+``dirResult/debug.{trainName}/`` at every validation boundary.
 """
 
 from __future__ import annotations
@@ -33,6 +36,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                         help="path to the configuration (exp.json schema)")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                         help="where to train (default: the CUDA card)")
+    parser.add_argument("-debug", dest="debug", action="store_true",
+                        help="write overlay PNGs of the last trained batch "
+                        "at every validation boundary")
     return parser.parse_args(argv)
 
 
@@ -43,6 +49,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
 
     args = parse_args(argv)
     config = Configuration.from_json(args.configuration)
+    if args.debug:
+        config.update("debug", True)
     pprint(config.config, indent=4)
     Logger.info(":: train :: {} on {} ::".format(args.configuration,
                                                   args.device))

@@ -31,7 +31,13 @@ families on one card:
   validation set is resident, renders it again on every pass;
 - ``bestSnapshotMetric``, the loss CSVs, ``evals.{trainName}.txt``, JSONL
   telemetry, the stop at a non-finite loss, SIGTERM/SIGINT preemption
-  and exact resume from ``currentIter``.
+  and exact resume from ``currentIter``;
+- with ``debug`` (the train CLI's ``-debug``), overlay PNGs of the last
+  trained batch at every validation boundary
+  (:meth:`NetworkFactory.dump_debug_overlays`);
+- a ``torch.profiler`` trace of the step window that ``SCD_PROFILE_DIR``,
+  ``SCD_PROFILE_START`` and ``SCD_PROFILE_STEPS`` name
+  (``core/profiling.StepProfiler``).
 
 Each step's draws come from a ``torch.Generator`` seeded from
 (seed + 1, step) (``data/pipeline.step_seed``), the JAX trainer's
@@ -39,8 +45,8 @@ Each step's draws come from a ``torch.Generator`` seeded from
 sequence. The validation set is cut into whole batches (a remainder is
 dropped, ``data/dataset.get_validation_set``), so no batch carries
 padding rows and no decoded score needs the JAX trainer's padding mask.
-Not carried over: the device mesh and data parallelism, the pipeline
-schedule, the debug overlays and ``StepProfiler``.
+Not carried over yet: the device mesh and data parallelism, and the
+pipeline schedule.
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ from scd_resnet_tpu_torch.core.checkpoint import (
 from scd_resnet_tpu_torch.core.config import Configuration
 from scd_resnet_tpu_torch.core.device import resolve_device
 from scd_resnet_tpu_torch.core.logging import Logger, ProgressLine, StepTelemetry
+from scd_resnet_tpu_torch.core.profiling import StepProfiler
 from scd_resnet_tpu_torch.data.dataset import SCDDataset, as_storage
 from scd_resnet_tpu_torch.data.pipeline import (
     Draws,
@@ -89,6 +96,52 @@ def parse_metric_line(line: str, name: str) -> Optional[float]:
             except ValueError:
                 return None
     return None
+
+
+def overlay_markers(ys: List[np.ndarray], heat_size: int, legacy: bool,
+                    j: int) -> List[Tuple[str, Any, Dict[str, Any]]]:
+    """The debug overlay's markers for clip ``j`` of a batch's host
+    targets ``ys`` (the batch transform's layout), as ``(ImageDraw
+    method, xy, style)``, in the JAX trainer's order and arithmetic
+    (``scd_resnet_tpu/train/factory.py:899-931``).
+
+    Center and corner batches share ``[heat, mask, regr, inds, ...]``:
+    each object gets a circle at its centre (the heat cell times 4 plus
+    the offset, already in pixels) and its major axis. Legacy batches,
+    ``[tl heat, br heat, mask, tl regr, br regr, tl inds, br inds]``, get
+    the box the tl and br corners span and a circle at each corner."""
+    markers: List[Tuple[str, Any, Dict[str, Any]]] = []
+
+    def corner_px(inds_jk, regr_jk):
+        x = (float(inds_jk % heat_size) + float(regr_jk[0])) * 4
+        y = (float(inds_jk // heat_size) + float(regr_jk[1])) * 4
+        return x, y
+
+    mask = ys[2] if legacy else ys[1]
+    for k in range(mask.shape[1]):
+        if not bool(mask[j, k]):
+            continue
+        if legacy:
+            tlx, tly = corner_px(ys[5][j, k], ys[3][j, k])
+            brx, bry = corner_px(ys[6][j, k], ys[4][j, k])
+            markers += [
+                ("rectangle", [min(tlx, brx), min(tly, bry), max(tlx, brx),
+                               max(tly, bry)], {"outline": (64, 255, 64)}),
+                ("ellipse", [tlx - 3, tly - 3, tlx + 3, tly + 3],
+                 {"outline": (64, 160, 255), "width": 2}),
+                ("ellipse", [brx - 3, bry - 3, brx + 3, bry + 3],
+                 {"outline": (255, 160, 64), "width": 2})]
+            continue
+        regr, inds = ys[2], ys[3]
+        cx = float(inds[j, k] % heat_size) * 4 + float(regr[j, k, 0])
+        cy = float(inds[j, k] // heat_size) * 4 + float(regr[j, k, 1])
+        markers += [
+            ("ellipse", [cx - 3, cy - 3, cx + 3, cy + 3],
+             {"outline": (255, 64, 64), "width": 2}),
+            ("line", [(cx - regr[j, k, 2] * 4, cy - regr[j, k, 3] * 4),
+                      (cx + regr[j, k, 2] * 4, cy + regr[j, k, 3] * 4)],
+             {"fill": (64, 255, 64)})]
+    return markers
 
 
 def make_lr_schedule(base_lr: float, decay_steps: List[int],
@@ -138,9 +191,7 @@ class NetworkFactory:
                 raise NotImplementedError(
                     "'{}' is a JAX-trainer option the port does not have "
                     "yet".format(key))
-        if cfg.config.get("debug"):
-            Logger.warn(":: factory :: debug overlays are not ported; "
-                        "ignoring 'debug'")
+        self.debug = bool(cfg.config.get("debug", False))
 
         self.profile = get_model_profile(cfg.modelName)
         if self.profile.loss is None:
@@ -312,6 +363,34 @@ class NetworkFactory:
         xs, ys = self._last_batch
         return self.validate(xs, ys)
 
+    def dump_debug_overlays(self, it: int, max_clips: int = 4) -> None:
+        """``-debug``: PNGs of the first ``max_clips`` clips of the last
+        trained batch, after augmentation, with their ground truth's
+        markers (:func:`overlay_markers`), as
+        ``dirResult/debug.{trainName}/it{it:06d}.clip{j}.png`` (the JAX
+        trainer's, ``scd_resnet_tpu/train/factory.py:862-935``). Each
+        clip is stretched from its own min..max to 0..255."""
+        from PIL import Image, ImageDraw
+
+        xs, ys = self._last_batch
+        xs = xs[:max_clips, 0].float().cpu().numpy()
+        ys = [y.cpu().numpy() for y in ys]
+        legacy = self.profile.corner_targets == "legacy"
+        out_dir = os.path.join(self.config.dirResult,
+                               "debug.{}".format(self.config.trainName))
+        os.makedirs(out_dir, exist_ok=True)
+        for j, clip in enumerate(xs):
+            lo, hi = float(clip.min()), float(clip.max())
+            u8 = np.zeros_like(clip, np.uint8) if hi <= lo else \
+                ((clip - lo) / (hi - lo) * 255.0).astype(np.uint8)
+            img = Image.fromarray(u8).convert("RGB")
+            draw = ImageDraw.Draw(img)
+            for method, xy, style in overlay_markers(ys, self.heat_size,
+                                                     legacy, j):
+                getattr(draw, method)(xy, **style)
+            img.save(os.path.join(out_dir,
+                                  "it{:06d}.clip{}.png".format(it, j)))
+
     # ---- checkpoints -------------------------------------------------------
 
     def _checkpoint_path(self) -> str:
@@ -384,6 +463,7 @@ class NetworkFactory:
                       "Parameter Count: {}\n".format(self.parameter_count)]
         telemetry = StepTelemetry(telemetry_path)
         progress = ProgressLine()
+        profiler = StepProfiler()
         t_start = time.perf_counter()
         steps_this_run = 0
         best_val: Optional[float] = None
@@ -432,10 +512,13 @@ class NetworkFactory:
                 for step, args in batches(epoch, skip):
                     cfg.update_iteration(it)
                     it += 1
+                    profiler.step(it)
                     loss, stats = step(*args)
 
                     if it % cfg.validationFrequency == 0:
                         progress.clear()
+                        if self.debug:
+                            self.dump_debug_overlays(it)
                         tr_line, it_line = self._validation_lines(it)
                         eval_lines.append(tr_line + "\n" + it_line + "\n")
                         Logger.info_green(tr_line)
@@ -523,6 +606,7 @@ class NetworkFactory:
             seconds = time.perf_counter() - t_start
             progress.clear()
             telemetry.close()
+            profiler.close(it)
             for sig, handler in prev_handlers.items():
                 signal.signal(sig, handler)
             with open(os.path.join(cfg.dirResult, "evals.{}.txt".format(

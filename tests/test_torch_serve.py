@@ -3,7 +3,9 @@
 ``serve`` CLI's refusal to start without CUDA unless ``--device cpu``,
 and subprocesses that block ``jax``, ``flax``, ``optax`` and
 ``scd_resnet_tpu`` and still import the port (``trace``, ``test`` and
-the msgpack reader among its modules), serve a clip and train
+the msgpack reader among its modules), serve a clip, preprocess a small
+slide through ``python -m scd_resnet_tpu_torch.preprocess``, build
+``DCNPooling``, and train
 through ``python -m scd_resnet_tpu_torch.train`` (the legacy CornerNet
 with remat among the models)."""
 
@@ -146,6 +148,24 @@ SERVE_BLOCKED = BLOCK + textwrap.dedent("""
     slide = np.random.default_rng(0).integers(0, 255, (512, 512), np.uint8)
     detections = InferenceService(wrapper).analyse_gray(slide)
     assert msgpack.unpackb(b"\\x81\\xa1a\\x01") == {"a": 1}
+
+    # the preprocessing CLI on a small slide, and DCNPooling
+    import contextlib, io, runpy, tempfile, zipfile
+    from scd_resnet_tpu_torch.data.synthetic import make_slide_and_annotation
+    from scd_resnet_tpu_torch.models.deformable import DCNPooling
+    root = tempfile.mkdtemp()
+    make_slide_and_annotation(root + "/i", root + "/a", 1, width=200,
+                              height=120, objects=3)
+    sys.argv = ["preprocess", root + "/out.d", "-i", root + "/i", "-a",
+                root + "/a", "-s", "64", "-m", "28 4 28 4", "--device",
+                "cpu"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        runpy.run_module("scd_resnet_tpu_torch.preprocess",
+                         run_name="__main__")
+    assert len(zipfile.ZipFile(root + "/out.d").namelist()) == 2 * 128 + 2
+    pooled = DCNPooling(2, pooled_size=3, group_size=3, deform_fc_dim=8)(
+        torch.randn(1, 18, 16, 16), torch.tensor([[0.0, 4, 4, 40, 50]]))
+    assert pooled.shape == (1, 2, 3, 3)
 """) + LEAK_CHECK + 'print("served", len(detections))\n'
 
 # python -m scd_resnet_tpu_torch.train <tiny config> --device cpu, for a
