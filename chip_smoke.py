@@ -198,7 +198,27 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
    both. Last, ``DCNPooling`` forward and backward at x (2, 392, 128,
    128) with 256 ROIs, pooled 7 with 4 x 4 samples, on the card against
    the CPU within the float32 bounds that ``check_psroi`` derives;
-11. prints one ``{"kernels": [...]}`` line (each kernel's ``launches``
+11. the parallel layer, on the one card (its ranks and stages share
+   ``cuda:0``, which checks correctness, not scaling). (a) exp74 under
+   ``torchrun --nproc_per_node 1`` on NCCL (this script re-run with
+   ``--rank-job``): a float32 step on the first batch of 32 with seeded
+   draws equal to the single-process step to the bit (loss, gradients,
+   BatchNorm statistics), then 20 bf16 steps through the train entry
+   point with K1 21 and K5 20 exactly, and a timed window of 10 steps;
+   (b) two ranks on ``cuda:0`` over gloo, ``meshShape [2]`` and ``[1,
+   2]`` data x model: one float32 step each against the single-process
+   step within ``STEP_*`` (the step's own sensitivity, the same step on
+   clips moved by ``PROBE_NUDGE``, printed beside), and the number of
+   sharded parameters; (c) hourglass2_best with ``meshShape [1, 2]``
+   data x pipe, both stages on ``cuda:0``: one microbatch's float32 step
+   equal to the plain step to the bit, four microbatches' heads equal
+   to ``sequential_apply``'s and their gradients within 1e-5, then 10
+   bf16 steps through the train entry point (K1 11 exactly, step ms,
+   peak memory); (d) ``cornerCPoolRes10`` and ``centerOffsetRes10``
+   served through ``make_device_analyzer(mesh=["cuda:0", "cuda:0"])``
+   on the slide: 24 + 24 clips, the monolithic detections exactly, K2 8
+   launches a corner request, the latency printed;
+12. prints one ``{"kernels": [...]}`` line (each kernel's ``launches``
    from the newest path that runs it, named in ``main_path``, and its
    counts on every path; the render once, with its center set's numbers,
    and every map set's numbers and launches on the path that runs it
@@ -220,6 +240,7 @@ import json
 import math
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import threading
@@ -237,7 +258,10 @@ from scd_resnet_tpu_torch import serve
 from scd_resnet_tpu_torch.core import cuda_build
 from scd_resnet_tpu_torch.core.checkpoint import save_checkpoint
 from scd_resnet_tpu_torch.core.config import Configuration
-from scd_resnet_tpu_torch.core.device import reproducible_float32
+from scd_resnet_tpu_torch.core.device import (
+    reproducible_float32,
+    training_backends,
+)
 from scd_resnet_tpu_torch.data.archive import read_archive
 from scd_resnet_tpu_torch.data.dataset import VALIDATION_CHUNK, SCDDataset
 from scd_resnet_tpu_torch.data.preprocess import (
@@ -249,6 +273,8 @@ from scd_resnet_tpu_torch.data.preprocess import (
 )
 from scd_resnet_tpu_torch.data.pipeline import (
     THRESHOLD_IOU,
+    augment_and_render_batch,
+    draw,
     identity_draws,
     legacy_corners,
     legacy_targets,
@@ -280,6 +306,12 @@ from scd_resnet_tpu_torch.ops.augment import rotation_tolerance
 from scd_resnet_tpu_torch.ops.dcn import deform_psroi_pooling
 from scd_resnet_tpu_torch.ops.image import grayscale_preprocess
 from scd_resnet_tpu_torch.ops.radius import corner_threshold_radius
+from scd_resnet_tpu_torch.parallel.mesh import full_gradients, init_distributed
+from scd_resnet_tpu_torch.parallel.pipeline import (
+    StackStage,
+    pipeline_apply,
+    sequential_apply,
+)
 from scd_resnet_tpu_torch.profile_kernels import device_kernels
 from scd_resnet_tpu_torch.profile_serve import device_ms
 from scd_resnet_tpu_torch.profile_train import (
@@ -2315,6 +2347,360 @@ def check_psroi(gpu_line: str, device: str = "cuda"):
             "output_moved_by_trans": moved}
 
 
+# -- 11. the parallel layer: torchrun ranks, the model axis, the pipeline, mesh serving
+
+MESH_TIMEOUT_S = 600  # one torchrun launch, start-up and every rank included
+STEP_SEED = 11  # the draws of phase 11's float32 steps
+PIPE_STEPS, TORCHRUN_STEPS, TIMED_STEPS = 10, 20, 10
+# one float32 exp74 step of two ranks on one card against one process:
+# the loss and the BatchNorm statistics within phase 9's bounds for card
+# against CPU (the same terms summed in another order); the gradients,
+# |g_mesh - g| / |g| over all parameters, within 1e-2. The float32 step
+# is that sensitive: the same step with its clips moved by PROBE_NUDGE
+# relative moves the gradients by 1.7e-3 (the deconvolutions' weights
+# most), as much as two ranks or two model shards do (1.6e-3, both on an
+# NVIDIA H100 80GB HBM3 at 700 W, where a bound of 1e-3 failed); phase 11
+# prints that probe beside the meshes' differences
+STEP_LOSS_REL, STEP_GRAD_REL, STEP_STAT_RTOL, STEP_STAT_ATOL = \
+    1e-4, 1e-2, 1e-4, 1e-5
+
+
+def step_draws(device, batch: int, size: int):
+    gen = torch.Generator(device=device).manual_seed(STEP_SEED)
+    return draw(gen, batch, size, torch.device(device))
+
+
+def one_step(values, device: str, nudge: float = 0.0):
+    """One float32 step of the configuration ``values`` on the first
+    global batch of epoch 0 with seeded draws (on a mesh: this rank's
+    rows of them): the loss, the gradients in the plain layout and the
+    BatchNorm statistics, on the host. ``nudge`` moves the clips by that
+    much relative (seeded), as phase 9's probe does."""
+    cfg = Configuration()
+    cfg.update_config(values)
+    with training_backends("float32"):
+        factory = NetworkFactory(cfg, device=device)
+        batch = next(factory.dataset.epoch_batches(cfg.batchSize, 0))
+        if nudge:
+            noise = np.random.default_rng(20).standard_normal(
+                batch[0].shape)
+            batch = ((batch[0] * (1 + nudge * noise)).astype(np.float32),
+                     *batch[1:])
+        cuda_build.reset_launches()
+        loss, _ = factory.train(*batch, draws=step_draws(
+            factory.device, cfg.batchSize, factory.sample_size))
+        grads = full_gradients(factory.model, factory.sharded, factory.mesh)
+    return {"loss": loss.item(),
+            "grads": {k: g.cpu() for k, g in grads.items()},
+            "stats": {k: v.cpu() for k, v in factory.model.state_dict().items()
+                      if k.endswith(("running_mean", "running_var"))},
+            "sharded": len(factory.sharded),
+            "parameters": len(list(factory.model.parameters())),
+            "launches": dict(cuda_build.LAUNCHES)}
+
+
+def timed_steps(values, device: str, warm: int = 3, steps: int = TIMED_STEPS):
+    """ms a step of ``values`` (residency device) over ``steps`` steps
+    after ``warm``, host clock around steps ending in a synchronise."""
+    cfg = Configuration()
+    cfg.update_config(dict(values, residency="device"))
+    with training_backends(values.get("precision", "float32")):
+        factory = NetworkFactory(cfg, device=device)
+        batch, epoch, feed = cfg.batchSize, 0, []
+        while len(feed) < warm + steps:
+            feed += list(factory.dataset.epoch_local_indices(
+                batch, epoch, num_shards=factory.mesh.size("data")
+                if factory.mesh else 1, local_train=factory._local_train))
+            epoch += 1
+        for idx in feed[:warm]:
+            factory.train_resident(idx)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for idx in feed[warm:warm + steps]:
+            factory.train_resident(idx)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def rank_job(spec_path: str) -> int:
+    """A ``torchrun`` rank of phase 11 (``chip_smoke.py --rank-job
+    spec.json``): joins the process group and runs the spec's jobs, a
+    float32 ``one_step`` or a run of the train entry point with its
+    launch counts, peak memory and a timed window; rank 0 writes each
+    job's result."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank, _, _ = init_distributed(spec["device"], spec["backend"])
+    try:
+        for job in spec["jobs"]:
+            if job["kind"] == "step":
+                result = one_step(job["values"], spec["device"])
+            else:
+                path = write_config(job["out"] + ".json", job["values"])
+                torch.cuda.reset_peak_memory_stats()
+                cuda_build.reset_launches()
+                summary = train_cli.main([path, "--device", spec["device"],
+                                          "--backend", spec["backend"]])
+                result = {"summary": summary,
+                          "launches": dict(cuda_build.LAUNCHES),
+                          "peak_memory_gb":
+                              torch.cuda.max_memory_allocated() / 1024 ** 3,
+                          "step_ms": timed_steps(job["values"],
+                                                 spec["device"])}
+            if rank == 0:
+                torch.save(result, job["out"])
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def torchrun(ranks: int, device: str, backend: str, jobs, work: str):
+    """``jobs`` on ``ranks`` ranks started by ``torchrun`` (this script
+    with ``--rank-job``); rank 0's results, one a job."""
+    spec = write_config(os.path.join(work, "ranks.json"), {
+        "device": device, "backend": backend, "jobs": jobs})
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--nproc_per_node", str(ranks), "--master_addr", "127.0.0.1",
+           "--master_port", str(port), os.path.abspath(__file__),
+           "--rank-job", spec]
+    t0 = time.perf_counter()
+    with open(os.path.join(work, "torchrun.log"), "w") as out:
+        proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            code = proc.wait(timeout=MESH_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+    if code != 0:
+        with open(os.path.join(work, "torchrun.log")) as f:
+            raise RuntimeError("torchrun ({} ranks, {}) failed ({}):\n{}".format(
+                ranks, backend, code, f.read()[-6000:]))
+    log("torchrun: {} rank(s) on {} over {} in {:.1f}s".format(
+        ranks, device, backend, time.perf_counter() - t0))
+    return [torch.load(job["out"], weights_only=False) for job in jobs]
+
+
+def compare_steps(got, want, what: str, exact: bool = False,
+                  bounded: bool = True):
+    """A mesh's float32 step against the single-process step: to the bit,
+    within the ``STEP_*`` bounds, or (not ``bounded``) measured only."""
+    num = math.sqrt(sum(float((got["grads"][k].double()
+                               - g.double()).pow(2).sum())
+                        for k, g in want["grads"].items()))
+    den = math.sqrt(sum(float(g.double().pow(2).sum())
+                        for g in want["grads"].values()))
+    loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    stat_err = max(float((got["stats"][k] - v).abs().max())
+                   for k, v in want["stats"].items())
+    out = {"loss": got["loss"], "loss_single": want["loss"],
+           "loss_rel": loss_rel, "grad_rel": num / den,
+           "stats_max_abs": stat_err}
+    if exact:
+        same = (got["loss"] == want["loss"] and all(
+            torch.equal(got["grads"][k], g) for k, g in want["grads"].items())
+            and all(torch.equal(got["stats"][k], v)
+                    for k, v in want["stats"].items()))
+        if not same:
+            raise AssertionError("{}: not bit-equal to the single-process "
+                                 "step: {}".format(what, out))
+    elif bounded:
+        for k, v in want["stats"].items():
+            if not torch.allclose(got["stats"][k], v, rtol=STEP_STAT_RTOL,
+                                  atol=STEP_STAT_ATOL):
+                raise AssertionError("{}: BatchNorm statistic {} differs "
+                                     "beyond the bound".format(what, k))
+        if not (loss_rel <= STEP_LOSS_REL and num / den <= STEP_GRAD_REL):
+            raise AssertionError("{}: beyond the bound: {}".format(what, out))
+    kind = "bit-equal" if exact else "measured" if not bounded else \
+        "bounds: loss {}, gradients {}".format(STEP_LOSS_REL, STEP_GRAD_REL)
+    log("{}: loss {!r} against {!r} (rel {:.2e}), gradients rel {:.2e}, "
+        "BatchNorm statistics max abs {:.2e} ({})".format(
+            what, got["loss"], want["loss"], loss_rel, num / den, stat_err,
+            kind))
+    return out
+
+
+def check_torchrun(data_dir: str, work: str, n_val: int):
+    """11 (a), (b): exp74 under torchrun. One rank on NCCL: a float32 step
+    equal to the single-process step to the bit, then 20 bf16 steps
+    through the train entry point (K1 and K5 exact). Two ranks sharing
+    cuda:0 over gloo: ``meshShape [2]`` and ``[1, 2]`` (data x model),
+    one float32 step each within the ``STEP_*`` bounds."""
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    step_values = settings(EXP74, data_dir, os.path.join(work, "single"),
+                           precision="float32", residency="host")
+    single = one_step(step_values, "cuda")
+    nudged = compare_steps(one_step(step_values, "cuda", nudge=PROBE_NUDGE),
+                           single, "exp74, one process, float32 step on "
+                           "the clips moved by {:g}".format(PROBE_NUDGE),
+                           bounded=False)
+    one_rank = torchrun(1, "cuda", "nccl", [
+        {"kind": "step", "values": dict(step_values, dirTemp=os.path.join(
+            work, "nccl_step/")), "out": os.path.join(work, "nccl_step.pt")},
+        {"kind": "train", "values": settings(
+            EXP74, data_dir, os.path.join(work, "nccl_train"),
+            iterations=TORCHRUN_STEPS, validation=TORCHRUN_STEPS,
+            snapshot=TORCHRUN_STEPS),
+         "out": os.path.join(work, "nccl_train.pt")}], work)
+    nccl_step = compare_steps(one_rank[0], single, "exp74, torchrun 1 rank "
+                              "(NCCL), float32 step", exact=True)
+    train = one_rank[1]
+    expected = expected_launches(dict(settings(EXP74, data_dir, work),
+                                      validation=TORCHRUN_STEPS),
+                                 TORCHRUN_STEPS, n_val, runs=1)
+    if train["launches"] != expected:
+        raise AssertionError("exp74 under torchrun launched {}, expected "
+                             "{}".format(train["launches"], expected))
+    log("exp74, torchrun 1 rank (NCCL), {} bf16 steps: {:.2f} ms a step "
+        "({} steps timed after 3), {:.1f} clips/s over the run with its "
+        "validation, peak memory {:.2f} GB; launches {} (expected)".format(
+            TORCHRUN_STEPS, train["step_ms"], TIMED_STEPS,
+            train["summary"]["clips_per_s"], train["peak_memory_gb"],
+            train["launches"]))
+    two = torchrun(2, "cuda:0", "gloo", [
+        {"kind": "step", "values": dict(step_values, meshShape=[2],
+                                        dirTemp=os.path.join(work, "dp/")),
+         "out": os.path.join(work, "dp_step.pt")},
+        {"kind": "step", "values": dict(step_values, meshShape=[1, 2],
+                                        meshAxes=["data", "model"],
+                                        dirTemp=os.path.join(work, "tp/")),
+         "out": os.path.join(work, "tp_step.pt")}], work)
+    dp = compare_steps(two[0], single, "exp74, 2 ranks on cuda:0 (gloo), "
+                       "meshShape [2], float32 step", exact=False)
+    tp = compare_steps(two[1], single, "exp74, 2 ranks on cuda:0 (gloo), "
+                       "meshShape [1, 2] data x model, float32 step",
+                       exact=False)
+    log("the model axis sharded {} of {} parameters over 2 ranks".format(
+        two[1]["sharded"], two[1]["parameters"]))
+    if not two[1]["sharded"]:
+        raise AssertionError("the model axis sharded no parameter")
+    return ({"nudged_step": nudged, "nccl_step": nccl_step,
+             "nccl_train": {
+                k: train[k] for k in ("summary", "step_ms", "peak_memory_gb")},
+             "dp_step": dp, "tp_step": tp, "tp_sharded": two[1]["sharded"],
+             "parameters": two[1]["parameters"]},
+            train["launches"], two[0]["launches"])
+
+
+def check_pipeline(data_dir: str, work: str, n_val: int):
+    """11 (c): hourglass2_best with ``meshShape [1, 2]`` (data x pipe),
+    both stages on cuda:0, batch 32: one float32 step with one
+    microbatch equal to the plain step to the bit; four microbatches
+    against ``sequential_apply`` (heads to the bit, gradients within
+    1e-5); then 10 bf16 steps through the train entry point."""
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    pipe = {"meshShape": [1, 2], "meshAxes": ["data", "pipe"]}
+    values = settings(HOURGLASS2_BEST, data_dir, os.path.join(work, "step"),
+                      precision="float32", residency="host")
+    plain = one_step(values, "cuda")
+    piped = one_step(dict(values, pipelineMicrobatches=1, **pipe), "cuda:0")
+    m1 = compare_steps(piped, plain, "hourglass2_best, data x pipe [1, 2], "
+                       "1 microbatch, float32 step", exact=True)
+    # four microbatches against the sequential loop, on one batch
+    cfg = Configuration()
+    cfg.update_config(dict(values, pipelineMicrobatches=4, **pipe))
+    with training_backends("float32"):
+        factory = NetworkFactory(cfg, device="cuda:0")
+        model, devices = factory.model, factory.mesh.devices
+        batch = cfg.batchSize
+        samples, locs, counts = next(factory.dataset.epoch_batches(batch, 0))
+        xs, _ = augment_and_render_batch(
+            *(torch.as_tensor(a).to(devices[0]) for a in (samples, locs,
+                                                          counts)),
+            factory.heat_size, draws=step_draws(devices[0], batch,
+                                                factory.sample_size))
+        stages = [StackStage(model, s) for s in range(model.stacks)]
+        runs = {}
+        for name in ("pipeline", "sequential"):
+            model.zero_grad(set_to_none=True)
+            inter = model.preprocess(xs)
+            mbs = inter.reshape((4, batch // 4) + tuple(inter.shape[1:]))
+            heads = pipeline_apply(stages, mbs, devices) \
+                if name == "pipeline" else sequential_apply(stages, mbs,
+                                                            devices)
+            sum((h.double() ** 2).sum() for h in heads.values()).backward()
+            runs[name] = ({k: v.detach() for k, v in heads.items()},
+                          {n: p.grad.clone() for n, p in
+                           model.named_parameters()})
+        torch.cuda.synchronize()
+    (h_p, g_p), (h_s, g_s) = runs["pipeline"], runs["sequential"]
+    num = math.sqrt(sum(float((g_p[k].double() - g.double()).pow(2).sum())
+                        for k, g in g_s.items()))
+    den = math.sqrt(sum(float(g.double().pow(2).sum()) for g in g_s.values()))
+    heads_equal = all(torch.equal(h_p[k], h_s[k]) for k in h_s)
+    log("hourglass2_best, 4 microbatches of 8 on cuda:0: heads {} to "
+        "sequential_apply's, gradients rel {:.2e}".format(
+            "bit-equal" if heads_equal else "NOT equal", num / den))
+    if not (heads_equal and num / den <= 1e-5):
+        raise AssertionError("the pipeline differs from sequential_apply")
+    del factory, model, runs
+    # 10 bf16 steps through the train entry point
+    run_values = settings(HOURGLASS2_BEST, data_dir, os.path.join(work, "run"),
+                          iterations=PIPE_STEPS, validation=PIPE_STEPS,
+                          snapshot=PIPE_STEPS, pipelineMicrobatches=4, **pipe)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_build.reset_launches()
+    summary = train_cli.main([write_config(os.path.join(work, "run.json"),
+                                           run_values), "--device", "cuda:0"])
+    launches = dict(cuda_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1024 ** 3
+    expected = expected_launches(run_values, PIPE_STEPS, n_val, runs=1)
+    if launches != expected:
+        raise AssertionError("the pipelined hourglass2 launched {}, expected "
+                             "{}".format(launches, expected))
+    step_ms = timed_steps(run_values, "cuda:0")
+    log("hourglass2_best, data x pipe [1, 2] on cuda:0, 4 microbatches, {} "
+        "bf16 steps: {:.2f} ms a step ({} timed after 3), {:.1f} clips/s "
+        "over the run with its validation, peak memory {:.2f} GB; launches "
+        "{} (expected)".format(PIPE_STEPS, step_ms, TIMED_STEPS,
+                               summary["clips_per_s"], peak, launches))
+    return ({"m1_step": m1, "m4_grad_rel": num / den, "step_ms": step_ms,
+             "clips_per_s": summary["clips_per_s"], "peak_memory_gb": peak},
+            launches)
+
+
+def check_mesh_serving(slide, build_dir):
+    """11 (d): ``cornerCPoolRes10`` and ``centerOffsetRes10`` (the served
+    checkpoints) through ``make_device_analyzer(mesh=["cuda:0",
+    "cuda:0"])``: 24 + 24 clips, detections equal to the monolithic
+    analyzer's, K2 8 launches a corner request."""
+    out, corner_launches = {}, None
+    for arch in ("cornerCPoolRes10", "centerOffsetRes10"):
+        wrapper = load_wrapper(os.path.join(build_dir, arch + ".pt"), arch)
+        mono = make_device_analyzer(wrapper, SLIDE_W, SLIDE_H)
+        mesh = make_device_analyzer(wrapper, SLIDE_W, SLIDE_H,
+                                    mesh=["cuda:0", "cuda:0"])
+        want = mono(slide)
+        mesh(slide)  # first call: cuDNN's algorithm choice
+        torch.cuda.synchronize()
+        cuda_build.reset_launches()
+        t0 = time.perf_counter()
+        got = mesh(slide)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(cuda_build.LAUNCHES)
+        per_forward = pool_launches_per_forward(arch)
+        only(launches, {name: 2 * per_forward
+                        for name in cp.KERNEL_NAMES.values()})
+        if not want or got != want:
+            raise AssertionError("{}: mesh detections ({}) differ from the "
+                                 "monolithic ones ({})".format(
+                                     arch, len(got), len(want)))
+        log("{} over mesh [cuda:0, cuda:0]: {} detections, equal to the "
+            "monolithic analyzer's; {:.1f} ms a request; K2 {} "
+            "launches".format(arch, len(got), ms, k2_launches(launches)))
+        out[arch] = {"detections": len(got), "ms": ms}
+        if per_forward:
+            corner_launches = launches
+    return out, corner_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2444,9 +2830,21 @@ def main() -> int:
             build_dir, "train_preprocessed"))
         t0 = mark("train_preprocessed", t0)
         psroi = check_psroi(gpu_line)
-        mark("psroi", t0)
+        t0 = mark("psroi", t0)
+        # 11. the parallel layer: torchrun ranks on NCCL and on gloo, the
+        # model axis, the pipelined hourglass, mesh serving
+        with open(os.path.join(data_dir, "scdx16p100.split.json")) as f:
+            n_val = len(json.load(f)["validation"])
+        ranks, torchrun_counts, two_rank_counts = check_torchrun(
+            data_dir, os.path.join(build_dir, "torchrun"), n_val)
+        t0 = mark("torchrun", t0)
+        piped, pipe_counts = check_pipeline(
+            data_dir, os.path.join(build_dir, "pipeline"), n_val)
+        t0 = mark("pipeline", t0)
+        mesh_served, mesh_counts = check_mesh_serving(slide, build_dir)
+        mark("mesh_serving", t0)
 
-        # 11. results: every path's counts, the serving paths (oldest first)
+        # 12. results: every path's counts, the serving paths (oldest first)
         # before the training paths (oldest first); each kernel's launches
         # are those of the newest path that runs it
         paths = {"serve_cornerCPoolRes10": served[0]["launches"],
@@ -2462,12 +2860,17 @@ def main() -> int:
                  "train_hourglass2_best": trained[3]["launches"],
                  "train_legacy_full": trained[4]["launches"],
                  "train_centersize_full": trained[5]["launches"],
-                 "train_preprocessed_exp74": pre_trained["launches"]}
+                 "train_preprocessed_exp74": pre_trained["launches"],
+                 "train_exp74_two_ranks": two_rank_counts,
+                 "train_exp74_torchrun": torchrun_counts,
+                 "train_hourglass2_pipe": pipe_counts,
+                 "serve_mesh_cornerCPoolRes10": mesh_counts}
         # the render's map sets by the paths that launch them: M = 1 center
         # (exp74, dcn_full, hourglass2_best, centersize_full, exp74 from the
-        # preprocessed archive), M = 3 (cpool_best), the offset set twice a
-        # batch transform (legacy_full)
-        for set_name, path in (("center", "train_preprocessed_exp74"),
+        # preprocessed archive and under torchrun, the pipelined
+        # hourglass2), M = 3 (cpool_best), the offset set twice a batch
+        # transform (legacy_full)
+        for set_name, path in (("center", "train_hourglass2_pipe"),
                                ("center+tl+br", "train_cpool_best"),
                                ("offset", "train_legacy_full")):
             render["map_sets"][set_name]["main_path"] = path
@@ -2505,7 +2908,8 @@ def main() -> int:
                         "test_checkpoint": test_c, "training": trained,
                         "step_card_vs_cpu": steps, "preprocess": preprocessed,
                         "train_preprocessed": pre_trained, "psroi": psroi,
-                        "card": gpu_line,
+                        "torchrun": ranks, "pipeline": piped,
+                        "mesh_serving": mesh_served, "card": gpu_line,
                         "seconds": phases}))
         log(json.dumps({"kernels": kernels}))
         log(gpu_line)
@@ -2520,4 +2924,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--rank-job":
+        sys.exit(rank_job(sys.argv[2]))
     sys.exit(main())

@@ -5,9 +5,9 @@ configuration.py:11-44 declares the keys and defaults, 150-153 merges the
 user's JSON, ``{key}`` templates expand in the getters, e.g.
 ``dirDatafile = "{dirDataset}{datasetName}.d"``). The keys and defaults
 are the JAX package's, so every experiment file of ``configs/`` loads
-unchanged; unknown keys warn. Keys of parts the port does not have yet
-(``meshShape``, ``meshAxes``, ``pipelineMicrobatches``, ``remat``) load
-too; the trainer refuses a run that sets them.
+unchanged; unknown keys warn. The mesh keys (``meshShape``, ``meshAxes``,
+``pipelineMicrobatches``) are the trainer's (``train/factory.py``,
+``parallel/``).
 """
 
 from __future__ import annotations

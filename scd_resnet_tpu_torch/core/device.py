@@ -26,6 +26,12 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return device
 
 
+def visible_cards() -> list:
+    """Every visible CUDA device (the serving CLIs' ``--mesh``)."""
+    resolve_device("cuda")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 def reproducible_float32() -> None:
     """Full float32 and deterministic cuDNN algorithms for serving.
 

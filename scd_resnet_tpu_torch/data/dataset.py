@@ -182,29 +182,62 @@ class SCDDataset:
     def __len__(self) -> int:
         return len(self.order)
 
-    def steps_per_epoch(self, batch_size: int) -> int:
-        """Batches per epoch (drop_last)."""
-        return len(self.order) // batch_size
+    def steps_per_epoch(self, batch_size: int, shard_count: int = 1,
+                        shard_index: int = 0) -> int:
+        """Batches per epoch (drop_last) for each of ``shard_count``
+        hosts, from the smallest shard so that every host agrees (the JAX
+        dataset's rule)."""
+        del shard_index  # the same on every shard by construction
+        return (len(self.order) // shard_count) // batch_size
 
-    def epoch_batches(self, batch_size: int, epoch: int, skip: int = 0
+    def epoch_batches(self, batch_size: int, epoch: int, skip: int = 0, *,
+                      shard_count: int = 1, shard_index: int = 0
                       ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
         """One epoch of host (samples, locs, counts) batches in the
-        (seed, epoch)-keyed order, starting ``skip`` batches in."""
+        (seed, epoch)-keyed order, starting ``skip`` batches in; with
+        ``shard_count`` > 1, host ``shard_index``'s batches from every
+        ``shard_count``-th row of that order (the JAX dataset's per-host
+        split, the DistributedSampler's)."""
         rng = np.random.default_rng((self._seed, 7919, int(epoch)))
         order = np.asarray(self.order)
-        order = order[rng.permutation(len(order))]
-        for start in range(skip * batch_size,
-                           self.steps_per_epoch(batch_size) * batch_size,
+        order = order[rng.permutation(len(order))][shard_index::shard_count]
+        steps = self.steps_per_epoch(batch_size, shard_count)
+        for start in range(skip * batch_size, steps * batch_size,
                            batch_size):
             idx = order[start:start + batch_size]
             yield self.samples[idx], self.locs[idx], self.counts[idx]
 
-    def epoch_local_indices(self, batch_size: int, epoch: int, skip: int = 0
+    def device_shards(self, num_shards: int):
+        """The training rows split over ``num_shards`` data ranks for
+        residency: ``(shard_rows, local_train)``, ``shard_rows[d]`` the
+        rows of ``self.order`` rank d holds (equal blocks; at most
+        ``num_shards - 1`` tail rows dropped) and ``local_train[d]`` its
+        local indices (the JAX dataset's)."""
+        order = np.asarray(self.order)
+        per = len(order) // num_shards
+        shard_rows = [order[d * per:(d + 1) * per] for d in range(num_shards)]
+        return shard_rows, [np.arange(per) for _ in range(num_shards)]
+
+    def steps_per_epoch_resident(self, batch_size: int, num_shards: int,
+                                 local_train) -> int:
+        return min(len(t) for t in local_train) // (batch_size // num_shards)
+
+    def epoch_local_indices(self, batch_size: int, epoch: int, skip: int = 0,
+                            *, num_shards: int = 1, local_train=None
                             ) -> Iterator[np.ndarray]:
-        """One epoch of index batches into the training rows as the
-        trainer holds them on the card (``self.order``), in the
-        (seed, epoch)-keyed order, starting ``skip`` batches in."""
-        rng = np.random.default_rng((self._seed, 104729, int(epoch), 0))
-        local = rng.permutation(len(self.order))
-        for s in range(skip, self.steps_per_epoch(batch_size)):
-            yield local[s * batch_size:(s + 1) * batch_size].astype(np.int64)
+        """One epoch of index batches into the resident rows, in the
+        (seed, 104729, epoch, d)-keyed order of each shard d, starting
+        ``skip`` batches in: ``batch_size / num_shards`` local indices of
+        each shard's ``local_train``, concatenated shard-major (the JAX
+        dataset's order; rank d takes block d). One shard holds every
+        training row (``self.order``)."""
+        if local_train is None:
+            local_train = [np.arange(len(self.order))]
+        per = batch_size // num_shards
+        orders = []
+        for d in range(num_shards):
+            rng = np.random.default_rng((self._seed, 104729, int(epoch), d))
+            orders.append(local_train[d][rng.permutation(len(local_train[d]))])
+        for s in range(skip, min(len(o) for o in orders) // per):
+            yield np.concatenate([o[s * per:(s + 1) * per]
+                                  for o in orders]).astype(np.int64)

@@ -26,7 +26,10 @@ test.py:41-183). The device-fused serving path
   bands' rows concatenate into the monolithic order and the detections
   are the same;
 - ``analyse.many`` queues every slide's device work before it reads any
-  rows back.
+  rows back;
+- ``mesh`` (a list of devices, the ``data`` axis) shards the slide's
+  clips over the devices, one model copy on each distinct device, as the
+  JAX analyzer shards them over its mesh.
 
 The host-tiled path (:func:`analyse_grayscale`, :func:`analyse_images`)
 is the JAX package's in numpy: the clips are cut and standardised on the
@@ -39,12 +42,14 @@ last batch padded to the bundle's batch; it streams in bands alike.
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from scd_resnet_tpu_torch.infer.wrapper import make_wrapper
 from scd_resnet_tpu_torch.ops.image import (
     grayscale_inference_u8,
     pad_reflect_hybrid,
@@ -476,8 +481,8 @@ def analyse_images(model: Callable, full_path: str,
 def make_device_analyzer(wrapper: Callable, width: int, height: int,
                          dedupe_radius: Optional[float] = None,
                          bounds="slide",
-                         max_resident_clips: Optional[int] = None
-                         ) -> Callable:
+                         max_resident_clips: Optional[int] = None,
+                         mesh: Optional[Sequence] = None) -> Callable:
     """Slide analyzer with the tiling on the wrapper's device.
 
     Returns ``analyse(gray) -> detections``, with the slide-bounds filter
@@ -499,29 +504,59 @@ def make_device_analyzer(wrapper: Callable, width: int, height: int,
     order and are slower (a forward of 12 ``cornerCPoolRes10`` clips
     took 2374 ms where 24 took 257 ms, ``profile_serve.py``); from 24
     clips on a clip's rows are those of the slide's batch of 48, so the
-    detections are the monolithic analyzer's."""
+    detections are the monolithic analyzer's.
+
+    ``mesh``: a list of devices (the JAX analyzer's ``data`` mesh axis;
+    ``serve --mesh`` and ``test --mesh`` pass every visible card). The
+    slide's clips are padded with blank clips to a multiple of its length
+    and split in order, shard i on ``mesh[i]``; a distinct device gets
+    its own copy of the model; every shard's upload, tiling, forward and
+    decode are queued before any rows are read back, then the rows are
+    concatenated and cut to the slide's clips. A shard of fewer than
+    ``BATCH_SIZE`` clips runs padded to that batch, as a short band does.
+    A device may be named more than once (two shards on one card). It
+    excludes streaming: a slide that ``max_resident_clips`` would stream
+    raises the JAX analyzer's error."""
     device = wrapper.device
     contract = wrapper.contract
     clip_h, clip_v, pad_lr, pad_tb = slide_geometry(width, height)
     batch_axis = _batch_axis(contract)
     if bounds == "slide":
         bounds = (width, height)
-    streaming = bool(max_resident_clips
-                     and clip_h * clip_v > max_resident_clips)
+    n_clips = clip_h * clip_v
+    streaming = bool(max_resident_clips and n_clips > max_resident_clips)
+    if streaming and mesh is not None:
+        raise ValueError("max_resident_clips and mesh are mutually "
+                         "exclusive (shard OR stream, not both)")
 
-    def upload(host: np.ndarray) -> Tuple[torch.Tensor, torch.Tensor]:
+    def upload(host: np.ndarray, dev: torch.device = device
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(host tensor, device tensor) of a uint8 array: from pinned
         memory without a wait on the card, so the copy queues behind the
         work already there; the caller keeps both until the rows that
         depend on them are read."""
         src = torch.from_numpy(np.require(host, requirements=["C", "W"]))
-        if device.type != "cuda":
+        if dev.type != "cuda":
             return src, src
         src = src.pin_memory()
-        return src, src.to(device, non_blocking=True)
+        return src, src.to(dev, non_blocking=True)
+
+    def padded_rows(model: Callable, clips: torch.Tensor) -> torch.Tensor:
+        """``model``'s rows of ``clips``, run padded with blank clips to
+        ``BATCH_SIZE`` when fewer."""
+        n = clips.shape[0]
+        if n < BATCH_SIZE:
+            clips = torch.cat([clips, clips.new_zeros(
+                (BATCH_SIZE - n, *clips.shape[1:]))])
+        rows = model(clips)
+        return rows[:n] if batch_axis == 0 else rows[:, :n]
 
     def finish(inflight) -> List[List[float]]:
         rows = inflight[0]
+        if isinstance(rows, list):  # a mesh's shards, cut to the slide
+            rows = np.concatenate([r.cpu().numpy() for r in rows],
+                                  axis=batch_axis)
+            rows = rows[:n_clips] if batch_axis == 0 else rows[:, :n_clips]
         if isinstance(rows, torch.Tensor):
             rows = rows.cpu().numpy()
         detections = stitch_any(rows, contract, clip_h, clip_v, pad_lr,
@@ -540,14 +575,9 @@ def make_device_analyzer(wrapper: Callable, width: int, height: int,
             for x0, n_cols in bands:
                 host, band = upload(extract_padded_band(gray, x0, n_cols,
                                                         pad_lr, pad_tb))
-                n = n_cols * clip_v
                 with torch.inference_mode():
-                    clips = _cut_clips(band, n_cols, clip_v)
-                    if n < BATCH_SIZE:  # blank clips up to the batch
-                        clips = torch.cat([clips, clips.new_zeros(
-                            (BATCH_SIZE - n, *clips.shape[1:]))])
-                    rows = wrapper(clips)
-                rows = rows[:n] if batch_axis == 0 else rows[:, :n]
+                    rows = padded_rows(wrapper, _cut_clips(band, n_cols,
+                                                           clip_v))
                 if pending is not None:
                     parts.append(pending[0].cpu().numpy())
                 pending = (rows, host, band)
@@ -557,6 +587,34 @@ def make_device_analyzer(wrapper: Callable, width: int, height: int,
         def many(grays) -> List[List[List[float]]]:
             return [finish(dispatch(g)) for g in grays]
 
+    elif mesh is not None:
+        devices = [torch.device(d) for d in mesh]
+        copies = {device: wrapper}  # one model copy per distinct device
+        for dev in devices:
+            if dev not in copies:
+                copies[dev] = make_wrapper(copy.deepcopy(wrapper.model)
+                                           .to(dev), contract)
+        tilers = {dev: make_device_tiler(width, height, dev)
+                  for dev in copies}
+        per = -(-n_clips // len(devices))  # clips a shard, padded
+
+        def dispatch(gray: np.ndarray):
+            gray = coerce_gray_u8(gray)
+            inflight, clips = [], {}
+            with torch.inference_mode():
+                for dev in dict.fromkeys(devices):
+                    host, gray_dev = upload(gray, dev)
+                    inflight += [host, gray_dev]
+                    clips[dev] = tilers[dev](gray_dev)
+                shards = []
+                for i, dev in enumerate(devices):
+                    shard = clips[dev][i * per:(i + 1) * per]
+                    if shard.shape[0] < per:  # blank clips to the shard size
+                        shard = torch.cat([shard, shard.new_zeros(
+                            (per - shard.shape[0], *shard.shape[1:]))])
+                    shards.append(padded_rows(copies[dev], shard))
+            return (shards, inflight)
+
     else:
         tiler = make_device_tiler(width, height, device)
 
@@ -565,6 +623,7 @@ def make_device_analyzer(wrapper: Callable, width: int, height: int,
             with torch.inference_mode():
                 return wrapper(tiler(gray_u8)), host, gray_u8
 
+    if not streaming:
         def many(grays) -> List[List[List[float]]]:
             """Every slide's upload and device work queued before any
             rows come back, so the card runs slide i + 1 while the host

@@ -17,7 +17,10 @@ a blank slide, counted in ``compile_seconds`` and not in the serving
 
 ``/analyse?dedupe=R`` overrides the tile-overlap suppression radius for
 one request. Device work is serialised by a lock; the readback and host
-stitch of a request run outside it.
+stitch of a request run outside it. With ``mesh`` (a list of devices),
+each slide's clips are sharded over them
+(``infer/analyse.make_device_analyzer``), and ``/healthz`` reports the
+mesh.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import threading
 import time
 from collections import OrderedDict
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -53,8 +56,10 @@ class InferenceService:
     (``infer/wrapper.make_wrapper``)."""
 
     def __init__(self, wrapper: Callable,
-                 dedupe_radius: Optional[float] = None):
+                 dedupe_radius: Optional[float] = None,
+                 mesh: Optional[Sequence] = None):
         self.wrapper = wrapper
+        self.mesh = None if mesh is None else [torch.device(d) for d in mesh]
         self.contract = wrapper.contract
         self.fields = CONTRACT_FIELDS[self.contract]
         self._dedupe = dedupe_radius
@@ -79,7 +84,8 @@ class InferenceService:
             self._analyzers.move_to_end(key)
             return self._analyzers[key]
         t0 = time.perf_counter()
-        analyzer = make_device_analyzer(self.wrapper, width, height)
+        analyzer = make_device_analyzer(self.wrapper, width, height,
+                                        mesh=self.mesh)
         analyzer(np.zeros((height, width), np.uint8))
         elapsed = time.perf_counter() - t0
         with self._stats_lock:
@@ -150,17 +156,20 @@ class InferenceService:
     # -- introspection ----------------------------------------------------
 
     def health(self) -> dict:
-        device = self.wrapper.device
-        if device.type == "cuda":
-            name = "cuda:{} {}".format(device.index or 0,
-                                       torch.cuda.get_device_name(device))
-        else:
-            name = str(device)
+        def name(device):
+            if device.type == "cuda":
+                return "cuda:{} {}".format(device.index or 0,
+                                           torch.cuda.get_device_name(device))
+            return str(device)
+
         geometries = list(self._analyzers)  # atomic snapshot under the GIL
         return {
             "status": "ok",
             "mode": "device-fused",
-            "devices": [name],
+            "devices": [name(d) for d in dict.fromkeys(
+                self.mesh or [self.wrapper.device])],
+            "mesh": None if self.mesh is None else str(
+                {"data": len(self.mesh)}),
             "geometries": ["{}x{}".format(*k) for k in geometries],
         }
 

@@ -22,11 +22,13 @@ import contextlib
 import threading
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from scd_resnet_tpu_torch.ops.max_pool import max_pool_3x3_s2
+from scd_resnet_tpu_torch.parallel.collectives import all_reduce_sum, block_pad
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch convention; flax's 0.9
@@ -89,11 +91,25 @@ class BatchNorm(nn.BatchNorm2d):
     The batch moments come from the same fused ``F.batch_norm`` call that
     normalises the batch (into scratch buffers, momentum 1); the unbiased
     variance is then scaled by (n - 1) / n. Under :func:`recomputing`
-    the statistics are not touched."""
+    the statistics are not touched.
+
+    ``process_group`` (set by the trainer on a ``data`` mesh axis of more
+    than one rank) makes the training-mode moments those of the global
+    batch, as the JAX step's BatchNorm over a data-sharded batch: each
+    rank's per-channel count, mean and M2 are summed over the group by
+    a differentiable all-reduce and combined in rank order, the batch is
+    normalised by the global biased variance in float32, and the running
+    statistics move by the global moments. Every rank must run the same
+    BatchNorms in the same order, a recompute's included. Without a
+    group the fused path above runs."""
+
+    process_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.process_group is not None:
+            return self._cross_replica(x)
         mean = torch.zeros_like(self.running_mean)
         var = torch.zeros_like(self.running_var)
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
@@ -108,6 +124,31 @@ class BatchNorm(nn.BatchNorm2d):
                 var * ((n - 1) / n), alpha=self.momentum)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _cross_replica(self, x: torch.Tensor) -> torch.Tensor:
+        group = self.process_group
+        size = dist.get_world_size(group)
+        xf = x.float()
+        n = xf.numel() // xf.shape[1]
+        var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+        row = torch.stack([torch.full_like(mean, n), mean, var * n])
+        stats = all_reduce_sum(block_pad(row[None], dist.get_rank(group),
+                                         size, 0), group)
+        counts, means, m2s = stats.unbind(1)  # (ranks, C) each
+        total = counts.sum(0)
+        mean = (counts * means).sum(0) / total
+        var = (m2s + counts * (means - mean) ** 2).sum(0) / total
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * scale[:, None, None] \
+            + self.bias[:, None, None]
+        if not getattr(_RECOMPUTE, "active", False):
+            with torch.no_grad():
+                self.running_mean.mul_(1.0 - self.momentum).add_(
+                    mean, alpha=self.momentum)
+                self.running_var.mul_(1.0 - self.momentum).add_(
+                    var, alpha=self.momentum)
+                self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
 
 def batch_norm(features: int) -> BatchNorm:

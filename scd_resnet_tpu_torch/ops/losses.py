@@ -4,13 +4,46 @@ Counterpart of ``scd_resnet_tpu/ops/losses.py`` (reference
 models/losses/focal.py:25-53, regression.py:28-44), as masked sums with
 no boolean indexing, and the associative-embedding pull/push loss
 (embeddings.py:32-77). Heatmaps are NCHW here; the sums do not care.
+
+Under :func:`global_counts` (a ``data`` mesh axis) the focal loss's
+positive count and the regression's object count are those of the
+global batch, summed over the group without a gradient, as in the JAX
+step over a data-sharded batch: each rank's loss is its local sums over
+the global counts, so the ranks' losses and gradients sum to the global
+batch's. The embedding loss normalises per sample, so its local sum is
+already that share.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import contextlib
+import threading
+from typing import Iterator, Sequence
 
 import torch
+
+from scd_resnet_tpu_torch.parallel.collectives import reduce_sum_
+
+_COUNTS = threading.local()
+
+
+@contextlib.contextmanager
+def global_counts(group) -> Iterator[None]:
+    """While active on this thread, the losses' counts are summed over
+    ``group`` (no-op for None)."""
+    before = getattr(_COUNTS, "group", None)
+    _COUNTS.group = group
+    try:
+        yield
+    finally:
+        _COUNTS.group = before
+
+
+def _count(total: torch.Tensor) -> torch.Tensor:
+    group = getattr(_COUNTS, "group", None)
+    if group is None:
+        return total
+    return reduce_sum_(total.detach().clone(), group)
 
 
 def focal_loss(predictions: Sequence[torch.Tensor], ground_truth: torch.Tensor,
@@ -25,7 +58,7 @@ def focal_loss(predictions: Sequence[torch.Tensor], ground_truth: torch.Tensor,
     pos = (gt == 1.0).to(torch.float32)
     neg = (gt < 1.0).to(torch.float32)
     neg_weights = torch.pow(1.0 - gt, beta)
-    num_pos = pos.sum()
+    num_pos = _count(pos.sum())
 
     loss = torch.zeros((), dtype=torch.float32, device=gt.device)
     for pred in predictions:
@@ -41,7 +74,7 @@ def focal_loss(predictions: Sequence[torch.Tensor], ground_truth: torch.Tensor,
 
 def _masked_regression(err: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     mask = mask.to(torch.float32)
-    return (err * mask[:, :, None]).sum() / (mask.sum() + 1e-4)
+    return (err * mask[:, :, None]).sum() / (_count(mask.sum()) + 1e-4)
 
 
 def l1_loss_mask(regression: torch.Tensor, ground_truth: torch.Tensor,

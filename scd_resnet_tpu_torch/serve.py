@@ -2,7 +2,7 @@
 
 Usage:
     python -m scd_resnet_tpu_torch.serve -c ckpt.pt -a cornerCPoolRes10 \
-        [--device cuda|cpu] [--host 127.0.0.1] [--port 8600] \
+        [--device cuda|cpu] [--mesh] [--host 127.0.0.1] [--port 8600] \
         [--warmup 3092x2056] [--dedupe 16]
 
     curl -s -X POST --data-binary @slide.png \
@@ -14,7 +14,9 @@ for ``centerOffset*`` profiles, a reference ``.pth``. The service runs
 on CUDA unless ``--device cpu`` is given; without a GPU it refuses to
 start. Convolutions and matmuls run in full float32 (TF32 off), the
 precision of the JAX serve path, and cuDNN picks deterministic algorithms
-so that the same slide always gives the same detections.
+so that the same slide always gives the same detections. ``--mesh``
+shards each slide's clips over every visible CUDA device, one model copy
+on each (the JAX ``serve.py --mesh``).
 """
 
 from __future__ import annotations
@@ -22,7 +24,11 @@ from __future__ import annotations
 import argparse
 from typing import Optional, Sequence
 
-from scd_resnet_tpu_torch.core.device import reproducible_float32, resolve_device
+from scd_resnet_tpu_torch.core.device import (
+    reproducible_float32,
+    resolve_device,
+    visible_cards,
+)
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -38,10 +44,17 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("--port", type=int, default=8600)
     parser.add_argument("--dedupe", type=float, default=None,
                         help="default tile-overlap suppression radius (px)")
+    parser.add_argument("--mesh", action="store_true",
+                        help="shard each slide's clips over every visible "
+                        "CUDA device")
     parser.add_argument("--warmup", action="append", default=[],
                         metavar="WxH", help="prepare this slide geometry at "
                         "startup (repeatable), e.g. --warmup 3092x2056")
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    if args.mesh and args.device != "cuda":
+        parser.error("--mesh shards over the CUDA devices; it excludes "
+                     "--device cpu")
+    return args
 
 
 def build_service(args: argparse.Namespace):
@@ -55,7 +68,11 @@ def build_service(args: argparse.Namespace):
     print(":: serve :: TF32 off for cuDNN and cuBLAS (float32 as the JAX "
           "serve path); deterministic cuDNN algorithms", flush=True)
     wrapper = load_wrapper(args.checkpoint, args.arch, device)
-    service = InferenceService(wrapper, dedupe_radius=args.dedupe)
+    mesh = visible_cards() if args.mesh else None
+    if mesh is not None:
+        print(":: serve :: sharding clip batches over {} device(s)".format(
+            len(mesh)), flush=True)
+    service = InferenceService(wrapper, dedupe_radius=args.dedupe, mesh=mesh)
     print(":: serve :: serving {} as {} on {}".format(
         args.checkpoint, args.arch, device), flush=True)
     for geom in args.warmup:

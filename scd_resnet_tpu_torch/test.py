@@ -3,17 +3,17 @@
     python -m scd_resnet_tpu_torch.test slide1.png [slide2.png ...] \\
         (-m bundle.pt2 | -c ckpt -a centerOffsetRes10) [-o out.json] \\
         [--fit] [--dedupe R] [--keep-out-of-bounds] [--pipelined] \\
-        [--max-resident-clips N] [--device cuda|cpu]
+        [--max-resident-clips N] [--mesh] [--device cuda|cpu]
 
-Counterpart of the root ``test.py`` (reference test.py:41-183), without
-``--mesh``. ``-m`` serves a traced bundle (``python -m
+Counterpart of the root ``test.py`` (reference test.py:41-183). ``-m`` serves a traced bundle (``python -m
 scd_resnet_tpu_torch.trace``) through the host-tiled path, in batches of
 the bundle's batch; ``-c`` serves a checkpoint (the port's, the JAX
 package's msgpack, or a reference ``.pth`` for ``centerOffset*``)
 through the device-fused analyzer. ``--pipelined`` (with ``-c``) queues
 every slide's device work before any is read back;
 ``--max-resident-clips`` streams each slide in column bands of at most
-that many clips, with the same detections. It writes (``-o``) or prints
+that many clips, with the same detections; ``--mesh`` (with ``-c``)
+shards each slide's clips over every visible CUDA device. It writes (``-o``) or prints
 ``{"detections": [{"image", <the contract's fields>}...], "contract",
 "images"}``, and with ``--fit`` (the centerOffset contract only) the
 two-Gaussian fit of the Rhr histogram as ``gauss2``. It runs on CUDA
@@ -57,14 +57,20 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--max-resident-clips", type=int, default=None,
                         help="stream each slide in column bands of at most "
                              "this many clips (same detections; excludes "
-                             "--pipelined)")
+                             "--pipelined and --mesh)")
+    parser.add_argument("--mesh", action="store_true",
+                        help="with -c: shard each slide's clips over every "
+                             "visible CUDA device")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return parser
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     """Run the CLI on ``argv``; returns the result it writes."""
-    from scd_resnet_tpu_torch.core.device import reproducible_float32
+    from scd_resnet_tpu_torch.core.device import (
+        reproducible_float32,
+        visible_cards,
+    )
     from scd_resnet_tpu_torch.infer.analyse import (
         CONTRACT_FIELDS,
         analyse_images,
@@ -87,9 +93,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     if args.pipelined and not args.checkpoint:
         parser.error("--pipelined requires -c (the traced path is "
                      "host-tiled, one batch at a time)")
-    if args.max_resident_clips and args.pipelined:
-        parser.error("--max-resident-clips bounds what is in flight; "
-                     "--pipelined holds more in flight by design")
+    if args.mesh and not args.checkpoint:
+        parser.error("--mesh requires -c (the traced path is host-tiled, "
+                     "single-device)")
+    if args.max_resident_clips and (args.mesh or args.pipelined):
+        parser.error("--max-resident-clips bounds in-flight memory; "
+                     "--mesh/--pipelined hold more in flight by design")
+    if args.mesh and args.device != "cuda":
+        parser.error("--mesh shards over the CUDA devices; it excludes "
+                     "--device cpu")
     bounds = None if args.keep_out_of_bounds else "slide"
     contract = get_model_profile(args.arch).family if args.checkpoint \
         else traced_meta(args.model)["contract"]
@@ -102,6 +114,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
 
     if args.checkpoint:
         wrapper = load_wrapper(args.checkpoint, args.arch, args.device)
+        mesh = visible_cards() if args.mesh else None
+        if mesh is not None:
+            Logger.info(":: test :: sharding clip batches over {} "
+                        "device(s)".format(len(mesh)))
         Logger.info(":: test :: serving checkpoint {} as {} on {} with "
                     "device-fused tiling (contract '{}')".format(
                         args.checkpoint, args.arch, wrapper.device, contract))
@@ -112,7 +128,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
             if (width, height) not in analyzers:
                 analyzers[(width, height)] = make_device_analyzer(
                     wrapper, width, height, dedupe_radius=args.dedupe,
-                    bounds=bounds,
+                    bounds=bounds, mesh=mesh,
                     max_resident_clips=args.max_resident_clips)
             return analyzers[(width, height)]
 

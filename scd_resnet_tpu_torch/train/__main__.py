@@ -1,7 +1,8 @@
 """Train a model from an experiment configuration.
 
-    python -m scd_resnet_tpu_torch.train <config.json> [--device cuda|cpu]
-        [-debug]
+    python -m scd_resnet_tpu_torch.train <config.json>
+        [--device cuda|cuda:N|cpu] [--backend nccl|gloo] [-debug]
+    torchrun --nproc_per_node N -m scd_resnet_tpu_torch.train <config.json>
 
 Counterpart of the root ``train.py`` (reference train.py:31-110). The
 configuration has the ``exp.json`` schema (``configs/exp74.json`` is the
@@ -14,6 +15,14 @@ the configuration's ``precision`` for the run and are restored after it
 (``core/device.training_backends``). ``-debug`` (or ``"debug": true`` in
 the configuration) writes overlay PNGs of the last trained batch to
 ``dirResult/debug.{trainName}/`` at every validation boundary.
+
+Started by ``torchrun``, each rank joins the process group
+(``parallel/mesh.init_distributed``: NCCL on cards, gloo on the CPU, or
+``--backend gloo`` for ranks that share one card, which NCCL refuses)
+and trains its part of the mesh that ``meshShape``/``meshAxes`` describe
+(the data axis = the world size without them). ``--device cuda`` gives
+rank r the cards ``cuda:{LOCAL_RANK x pipe + s}``; ``--device cuda:N``
+pins every rank and pipeline stage to card N.
 """
 
 from __future__ import annotations
@@ -34,8 +43,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         description="train a model with a given configuration")
     parser.add_argument("configuration",
                         help="path to the configuration (exp.json schema)")
-    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                        help="where to train (default: the CUDA card)")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda, cuda:N or cpu (default: the CUDA card; "
+                        "under torchrun one card a rank)")
+    parser.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                        help="torchrun's process-group backend (default: "
+                        "nccl on cards, gloo on the CPU)")
     parser.add_argument("-debug", dest="debug", action="store_true",
                         help="write overlay PNGs of the last trained batch "
                         "at every validation boundary")
@@ -45,9 +58,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     """Train as the command line says; returns the run's summary
     (``NetworkFactory.begin_training``)."""
+    from scd_resnet_tpu_torch.parallel.mesh import init_distributed
     from scd_resnet_tpu_torch.train.factory import NetworkFactory
 
     args = parse_args(argv)
+    init_distributed(args.device, args.backend)
     config = Configuration.from_json(args.configuration)
     if args.debug:
         config.update("debug", True)

@@ -45,8 +45,35 @@ Each step's draws come from a ``torch.Generator`` seeded from
 sequence. The validation set is cut into whole batches (a remainder is
 dropped, ``data/dataset.get_validation_set``), so no batch carries
 padding rows and no decoded score needs the JAX trainer's padding mask.
-Not carried over yet: the device mesh and data parallelism, and the
-pipeline schedule.
+
+The mesh (``meshShape``/``meshAxes``, ``parallel/mesh.py``; the JAX
+trainer's ``factory.py:177-277``), for ranks started by ``torchrun``:
+
+- ``data``: each rank trains its block of the global batch. Every rank
+  draws the global batch's ``Draws`` and keeps its rows, so the mesh is
+  a placement decision, not a numerics one: BatchNorm takes the global
+  batch's moments, the losses its counts, and the gradients are summed
+  over the data group in buckets. A resident dataset holds shard d's rows
+  on rank d (``data/dataset.device_shards``). Without ``meshShape`` under
+  ``torchrun`` the data axis is the world size; a batch it does not
+  divide raises, since a rank cannot sit idle the way a spare JAX device
+  does;
+- ``model``: wide kernels keep a slice of their output channels on each
+  model rank and run column-parallel (``parallel/mesh.shard_model``);
+  Adam runs on the slices; a checkpoint gathers them, so it loads into
+  the single-card trainer and the serving wrapper;
+- ``pipe``: the stacked hourglass as a GPipe pipeline of its stacks over
+  the rank's devices, in ``pipelineMicrobatches`` microbatches
+  (``parallel/pipeline.make_pipelined_stack_forward``);
+- validation shards each batch over the data ranks and gathers the
+  decoded rows before the metric battery (a batch the data axis does not
+  divide runs whole on every rank), so every rank gets the same lines;
+  only rank 0 writes checkpoints, loss rows, evals, telemetry, traces
+  and overlays; every rank loads the same checkpoint; a stop request on
+  any rank stops them all at the same step.
+
+A run without ``torchrun`` and without ``meshShape`` takes none of these
+paths; a mesh of one rank and one device computes what it computes.
 """
 
 from __future__ import annotations
@@ -61,6 +88,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from scd_resnet_tpu_torch.core.checkpoint import (
     load_state_dict,
@@ -78,13 +106,31 @@ from scd_resnet_tpu_torch.data.pipeline import (
     draw,
     step_seed,
 )
-from scd_resnet_tpu_torch.models.center_net_offset import as_stack_list
-from scd_resnet_tpu_torch.models.layers import checkpointed
+from scd_resnet_tpu_torch.models.center_net_offset import (
+    CenterNetHourglass,
+    as_stack_list,
+)
+from scd_resnet_tpu_torch.models.layers import BatchNorm, checkpointed
 from scd_resnet_tpu_torch.models.resnet import init_like_flax
+from scd_resnet_tpu_torch.ops.losses import global_counts
+from scd_resnet_tpu_torch.parallel.collectives import (
+    gather_rows,
+    reduce_sum_,
+    sync_gradients,
+)
+from scd_resnet_tpu_torch.parallel.mesh import (
+    full_checkpoint_state,
+    local_checkpoint_state,
+    mesh_from_config,
+    resolve_axes,
+    shard_model,
+    shard_rows,
+    stage_devices,
+)
+from scd_resnet_tpu_torch.parallel.pipeline import make_pipelined_stack_forward
 from scd_resnet_tpu_torch.train.registry import get_dataset_profile, get_model_profile
 
 _METRIC_TOKEN = re.compile(r"\[(\S+?)\]\s+([-+0-9.eE]+)")
-_UNSUPPORTED = ("meshShape", "meshAxes", "pipelineMicrobatches")
 
 
 def parse_metric_line(line: str, name: str) -> Optional[float]:
@@ -162,6 +208,16 @@ def make_lr_schedule(base_lr: float, decay_steps: List[int],
     return schedule
 
 
+def _gather_tree(tree, group):
+    """Every tensor of a decode's output (lists, tuples, dicts) gathered
+    along its batch rows over ``group``."""
+    if isinstance(tree, torch.Tensor):
+        return gather_rows(tree, group)
+    if isinstance(tree, dict):
+        return {k: _gather_tree(v, group) for k, v in tree.items()}
+    return type(tree)(_gather_tree(v, group) for v in tree)
+
+
 def make_optimizer(name: str, params, lr: float) -> torch.optim.Optimizer:
     """Adam (optax's defaults: betas 0.9/0.999, eps 1e-8) or SGD with
     momentum 0.9 and weight decay 1e-4 folded into the gradient."""
@@ -176,22 +232,21 @@ def make_optimizer(name: str, params, lr: float) -> torch.optim.Optimizer:
 
 class NetworkFactory:
     """Builds the model, optimizer and dataset from a configuration and
-    runs the training schedule on ``device``."""
+    runs the training schedule on ``device``: a card (``cuda``, or
+    ``cuda:N`` to pin every rank and stage to card N) or ``cpu``. Under
+    ``torch.distributed`` (started by the caller, ``parallel/mesh.
+    init_distributed``) or with ``meshShape``, on the mesh (module
+    docstring)."""
 
     def __init__(self, config: Configuration,
                  dataset: Optional[SCDDataset] = None,
                  device: str | torch.device = "cuda",
                  seed: Optional[int] = None):
         self.config = cfg = config
-        self.device = resolve_device(device)
         if seed is None:
             seed = int(cfg.config.get("seed", 42))
-        for key in _UNSUPPORTED:
-            if cfg.config.get(key):
-                raise NotImplementedError(
-                    "'{}' is a JAX-trainer option the port does not have "
-                    "yet".format(key))
         self.debug = bool(cfg.config.get("debug", False))
+        self._setup_mesh(resolve_device(device))
 
         self.profile = get_model_profile(cfg.modelName)
         if self.profile.loss is None:
@@ -215,6 +270,12 @@ class NetworkFactory:
         self.remat_forward = remat and not own_remat
         init_like_flax(self.model, torch.Generator().manual_seed(seed))
         self.model.to(self.device)
+        self._forward = lambda xs: checkpointed(self.model, xs,
+                                                enabled=self.remat_forward)
+        self._eval_forward = self.model
+        self.sharded: Dict[str, int] = {}
+        if self.mesh is not None:
+            self._parallelise(remat)
         self.loss = self.profile.loss
         self.decode = self.profile.decode
         self.evaluation = self.profile.evaluation
@@ -227,19 +288,24 @@ class NetworkFactory:
             if os.path.exists(cfg.dirDataSplitProfile):
                 with open(cfg.dirDataSplitProfile) as f:
                     data_split = json.load(f)
+            if self.world > 1:  # every rank has read it before rank 0
+                dist.barrier()  # writes it again
             dataset = SCDDataset(
                 cfg.dirDatafile, data_split,
                 argument_ratio=ds_profile.argument_ratio,
                 partition=ds_profile.partition,
                 train_subset=ds_profile.train_subset,
-                split_profile_path=cfg.dirDataSplitProfile, seed=seed,
+                split_profile_path=cfg.dirDataSplitProfile
+                if self.rank == 0 else None, seed=seed,
                 storage_dtype=cfg.storageDtype, device=self.device)
         self.dataset = dataset
         self.heat_size = dataset.heat_size
         self.sample_size = dataset.samples.shape[1]
 
-        self.parameter_count = sum(p.numel()
-                                   for p in self.model.parameters())
+        model_size = self.mesh.size("model") if self.mesh else 1
+        self.parameter_count = sum(
+            p.numel() * (model_size if name in self.sharded else 1)
+            for name, p in self.model.named_parameters())
         Logger.log("Parameter Count: {}".format(self.parameter_count))
         self.schedule = make_lr_schedule(cfg.learningRate,
                                          cfg.learningRateDecay,
@@ -254,6 +320,94 @@ class NetworkFactory:
         self._stop_requested = False
         self.preempted = False
         self._setup_residency()
+
+    # ---- the mesh ------------------------------------------------------------
+
+    def _setup_mesh(self, device: torch.device) -> None:
+        """``self.mesh`` (None on the plain path), ``self.device``, this
+        rank's place and its data group."""
+        cfg = self.config
+        initialized = dist.is_initialized()
+        self.rank = dist.get_rank() if initialized else 0
+        self.world = dist.get_world_size() if initialized else 1
+        self.mesh = None
+        self.device = device
+        self.data_group = None
+        self._data_size, self._data_index = 1, 0
+        mesh_shape = cfg.config.get("meshShape")
+        if not mesh_shape and not initialized:
+            return
+        shape = mesh_shape or [self.world]
+        axes = resolve_axes(shape, cfg.config.get("meshAxes")
+                            if mesh_shape else None)
+        local_rank = int(os.environ.get("LOCAL_RANK", self.rank))
+        pipe = dict(zip(axes, shape)).get("pipe", 1)
+        self.mesh = mesh_from_config(
+            shape, axes, stage_devices(device, pipe, local_rank),
+            batch_size=cfg.batchSize, world_size=self.world, rank=self.rank)
+        self.device = self.mesh.devices[0]
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        self.data_group = self.mesh.group("data")
+        self._data_size = self.mesh.size("data")
+        self._data_index = self.mesh.index("data")
+        Logger.log("Mesh: {} (rank {} of {}, stages on {})".format(
+            self.mesh, self.rank, self.world,
+            ", ".join(str(d) for d in self.mesh.devices)))
+
+    def _parallelise(self, remat: bool) -> None:
+        """The model on the mesh: the pipeline's guards and forward (the
+        JAX trainer's ``factory.py:215-244``), the model axis's shards,
+        and the data group on the BatchNorms that see the whole batch."""
+        cfg, mesh = self.config, self.mesh
+        pipe = mesh.size("pipe")
+        bn_scope = self.model
+        if pipe > 1:
+            if not isinstance(self.model, CenterNetHourglass):
+                raise ValueError(
+                    "a 'pipe' mesh axis pipelines the stacked-hourglass "
+                    "family (stage = stack); model '{}' has no stack "
+                    "boundary to cut at".format(cfg.modelName))
+            if self.model.stacks != pipe:
+                raise ValueError(
+                    "mesh 'pipe' axis ({}) must equal the model's stack "
+                    "count ({})".format(pipe, self.model.stacks))
+            micro = int(cfg.config.get("pipelineMicrobatches") or 2 * pipe)
+            if (cfg.batchSize % micro
+                    or (cfg.batchSize // micro) % self._data_size):
+                raise ValueError(
+                    "batchSize {} must split into {} microbatches of a "
+                    "size divisible by the data axis ({})".format(
+                        cfg.batchSize, micro, self._data_size))
+            Logger.log(
+                "Pipeline-parallel training: {} stages x {} microbatches "
+                "(bubble fraction {:.0%})".format(
+                    pipe, micro, (pipe - 1) / (micro + pipe - 1)))
+            self.pipeline_microbatches = micro
+            bn_scope = self.model.preprocess
+        if mesh.size("model") > 1:
+            self.sharded = shard_model(self.model, mesh)
+            Logger.log("Model axis: {} of {} parameters sharded over {} "
+                       "ranks".format(len(self.sharded),
+                                      len(list(self.model.parameters())),
+                                      mesh.size("model")))
+        if pipe > 1:
+            self._forward = make_pipelined_stack_forward(
+                self.model, mesh.devices, self.pipeline_microbatches,
+                self.data_group, remat)
+            self._eval_forward = make_pipelined_stack_forward(
+                self.model, mesh.devices, 1)
+        for module in bn_scope.modules():
+            if isinstance(module, BatchNorm):
+                module.process_group = self.data_group
+
+    def _any_stop(self) -> bool:
+        """Whether any rank asked to stop (every rank calls it each
+        step)."""
+        if self.world == 1:
+            return self._stop_requested
+        flag = torch.tensor([float(self._stop_requested)], device=self.device)
+        return bool(reduce_sum_(flag, None).item() > 0)
 
     def request_stop(self, signum=None, frame=None) -> None:
         """Stop at the next step boundary with a full checkpoint (the
@@ -270,7 +424,10 @@ class NetworkFactory:
     def _step(self, samples: torch.Tensor, locs: torch.Tensor,
               counts: torch.Tensor, draws: Optional[Draws]):
         if draws is None:
-            draws = self.draws_for_step(self._aug_step, samples.shape[0])
+            draws = self.draws_for_step(self._aug_step,
+                                        samples.shape[0] * self._data_size)
+        if self.mesh is not None:  # this rank's rows of the global draws
+            draws = Draws(*(shard_rows(self.mesh, d) for d in draws))
         self._aug_step += 1
         self.model.train()
         xs, ys = augment_and_render_batch(
@@ -282,21 +439,37 @@ class NetworkFactory:
         self.optimizer.zero_grad(set_to_none=True)
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.autocast):
-            outs = checkpointed(self.model, xs, enabled=self.remat_forward)
-        loss, stats = self.loss(as_stack_list(outs), ys)
+            outs = self._forward(xs)
+        with global_counts(self.data_group):
+            loss, stats = self.loss(as_stack_list(outs), ys)
         loss.backward()
+        if self.data_group is not None:
+            sync_gradients(self.model.parameters(), self.data_group)
         self.optimizer.step()
         self.updates += 1
         self._last_batch = (xs, ys)
-        return loss.detach(), [s.detach() for s in stats]
+        if self.data_group is None:
+            return loss.detach(), [s.detach() for s in stats]
+        # the ranks' shares summed: the global batch's loss, on every rank
+        report = reduce_sum_(torch.stack([loss.detach()] + [
+            s.detach() for s in stats]), self.data_group)
+        return report[0], list(report[1:])
 
     def train(self, samples, locs, counts, draws: Optional[Draws] = None):
-        """One step on a host batch (numpy or tensors)."""
+        """One step on a host batch (numpy or tensors): on a data axis the
+        global batch, of which this rank trains its rows."""
+        if self.mesh is not None:
+            samples, locs, counts = (shard_rows(self.mesh, a)
+                                     for a in (samples, locs, counts))
         return self._step(*(torch.as_tensor(a).to(self.device)
                             for a in (samples, locs, counts)), draws)
 
     def train_resident(self, idx: np.ndarray, draws: Optional[Draws] = None):
-        """One step on the resident rows ``idx`` of ``dataset.order``."""
+        """One step on the resident rows ``idx`` (on a data axis the
+        global index vector, shard-major, of which this rank takes its
+        block of local indices)."""
+        if self.mesh is not None:
+            idx = shard_rows(self.mesh, np.asarray(idx))
         idx = torch.as_tensor(idx).to(self.device)
         return self._step(self._ds_samples.index_select(0, idx),
                           self._ds_locs.index_select(0, idx),
@@ -320,18 +493,21 @@ class NetworkFactory:
         storage = cfg.storageDtype
         itemsize = {"float32": 4, "float16": 2, "uint8": 1}[storage]
         clip_elems = int(np.prod(self.dataset.samples.shape[1:]))
-        train_bytes = len(self.dataset.order) * clip_elems * itemsize
+        # rows shard over the data axis (a rank holds its shard)
+        shards, self._local_train = self.dataset.device_shards(
+            self._data_size)
+        rows = shards[self._data_index]
+        train_bytes = len(rows) * clip_elems * itemsize
         budget = float(cfg.config.get("residencyBudgetGB", 8.0)) * 1024 ** 3
         if mode == "auto" and train_bytes > budget:
             Logger.warn(":: factory :: dataset ({:.1f} GB as {}) exceeds the "
                         "residency budget; streaming batches from host"
                         .format(train_bytes / 1024 ** 3, storage))
             return
-        if len(self.dataset.order) < cfg.batchSize:
+        if len(rows) < cfg.batchSize // self._data_size:
             Logger.warn(":: factory :: fewer training rows than one batch; "
                         "streaming from host")
             return
-        rows = np.asarray(self.dataset.order)
         Logger.log("Uploading device-resident dataset: {} clips, {:.2f} GB "
                    "as {}".format(len(rows), train_bytes / 1024 ** 3, storage))
         self._ds_samples = torch.from_numpy(
@@ -347,20 +523,33 @@ class NetworkFactory:
     @torch.no_grad()
     def validate(self, xs: torch.Tensor, ys: List[torch.Tensor]
                  ) -> Dict[str, Any]:
-        """The metric battery of one batch, in eval mode."""
+        """The metric battery of one batch, in eval mode; on a data axis
+        each rank decodes its rows and the decoded rows are gathered (a
+        batch the axis does not divide runs whole on every rank)."""
         xs = xs.to(self.device)
         ys = [y.to(self.device) for y in ys]
+        if self.data_group is not None and xs.shape[0] % self._data_size == 0:
+            decoded = _gather_tree(self._decode(shard_rows(self.mesh, xs)),
+                                   self.data_group)
+        else:
+            decoded = self._decode(xs)
+        return self.evaluation([xs], ys, *decoded)
+
+    def _decode(self, xs: torch.Tensor):
         self.model.eval()
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.autocast):
-            outs = self.model(xs)
-        decoded = self.decode(as_stack_list(outs)[-1])
-        return self.evaluation([xs], ys, *decoded)
+            outs = self._eval_forward(xs)
+        return self.decode(as_stack_list(outs)[-1])
 
     def validate_train_batch(self) -> Dict[str, Any]:
         """The [Tr] metrics: the last trained batch, as augmented,
-        through the updated model (networkFactory.py:183-188)."""
+        through the updated model (networkFactory.py:183-188); on a data
+        axis the ranks' rows gathered first."""
         xs, ys = self._last_batch
+        if self.data_group is not None:
+            xs = gather_rows(xs, self.data_group)
+            ys = [gather_rows(y, self.data_group) for y in ys]
         return self.validate(xs, ys)
 
     def dump_debug_overlays(self, it: int, max_clips: int = 4) -> None:
@@ -401,11 +590,15 @@ class NetworkFactory:
             self.config.modelName, self.config.trainName))
 
     def save_parameters(self, path: Optional[str] = None) -> None:
+        """The checkpoint in the plain layout (model-axis shards gathered,
+        a collective), written by rank 0 alone."""
         path = path or self._checkpoint_path()
+        state, opt = full_checkpoint_state(self.model, self.optimizer,
+                                           self.sharded, self.mesh)
+        if self.rank != 0:
+            return
         Logger.warn(":: checkpoint :: saving model to {}".format(path))
-        save_training_checkpoint(path, self.config.modelName,
-                                 self.model.state_dict(),
-                                 self.optimizer.state_dict(),
+        save_training_checkpoint(path, self.config.modelName, state, opt,
                                  self.config.currentIteration,
                                  self._aug_step)
 
@@ -413,8 +606,11 @@ class NetworkFactory:
         path = self._checkpoint_path()
         Logger.warn(":: checkpoint :: loading model from {}".format(path))
         ckpt = load_training_checkpoint(path, self.config.modelName)
-        self.model.load_state_dict(ckpt["state_dict"], strict=True)
-        self.optimizer.load_state_dict(ckpt["optimizer"])
+        state, opt = local_checkpoint_state(
+            self.model, ckpt["state_dict"], ckpt["optimizer"], self.sharded,
+            self.mesh)
+        self.model.load_state_dict(state, strict=True)
+        self.optimizer.load_state_dict(opt)
         self.updates = ckpt["step"]
         self._aug_step = ckpt["aug_step"]
 
@@ -423,8 +619,10 @@ class NetworkFactory:
         reference ``.pth`` (networkFactory.py:138-144): weights and
         BatchNorm statistics only."""
         Logger.warn(":: factory :: loading from pretrained: {}".format(path))
-        self.model.load_state_dict(
-            load_state_dict(path, self.config.modelName), strict=True)
+        state, _ = local_checkpoint_state(
+            self.model, load_state_dict(path, self.config.modelName),
+            {"state": {}, "param_groups": []}, self.sharded, self.mesh)
+        self.model.load_state_dict(state, strict=True)
 
     # ---- the schedule loop ---------------------------------------------------
 
@@ -461,9 +659,12 @@ class NetworkFactory:
         loss_rows: List[Tuple[int, torch.Tensor]] = []
         eval_lines = ["Experiment: {}\n".format(cfg.trainName),
                       "Parameter Count: {}\n".format(self.parameter_count)]
-        telemetry = StepTelemetry(telemetry_path)
-        progress = ProgressLine()
+        writer = self.rank == 0  # one writer on shared storage
+        telemetry = StepTelemetry(telemetry_path if writer else None)
+        progress = ProgressLine(None if writer else False)
         profiler = StepProfiler()
+        if not writer:
+            profiler.trace_dir = None
         t_start = time.perf_counter()
         steps_this_run = 0
         best_val: Optional[float] = None
@@ -479,6 +680,8 @@ class NetworkFactory:
 
         def flush_rows(upto: int) -> None:
             nonlocal loss_rows
+            if loss_rows and not writer:
+                loss_rows = []
             if loss_rows:
                 its = np.asarray([row[0] for row in loss_rows], np.float64)
                 values = torch.stack([row[1] for row in loss_rows]).cpu()
@@ -488,7 +691,9 @@ class NetworkFactory:
                            rows, delimiter=",", fmt="%.5f")
                 loss_rows = []
 
-        steps_per_epoch = self.dataset.steps_per_epoch(cfg.batchSize)
+        steps_per_epoch = self.dataset.steps_per_epoch_resident(
+            cfg.batchSize, self._data_size, self._local_train) \
+            if self.resident else self.dataset.steps_per_epoch(cfg.batchSize)
         if steps_per_epoch == 0:
             raise RuntimeError("the dataset's {} training rows yield no "
                                "batch of {}".format(len(self.dataset),
@@ -499,7 +704,9 @@ class NetworkFactory:
             """(step function, its arguments) for one epoch."""
             if self.resident:
                 for idx in self.dataset.epoch_local_indices(
-                        cfg.batchSize, epoch, skip):
+                        cfg.batchSize, epoch, skip,
+                        num_shards=self._data_size,
+                        local_train=self._local_train):
                     yield self.train_resident, (idx,)
             else:
                 for batch in self.dataset.epoch_batches(
@@ -517,7 +724,7 @@ class NetworkFactory:
 
                     if it % cfg.validationFrequency == 0:
                         progress.clear()
-                        if self.debug:
+                        if self.debug and writer:
                             self.dump_debug_overlays(it)
                         tr_line, it_line = self._validation_lines(it)
                         eval_lines.append(tr_line + "\n" + it_line + "\n")
@@ -569,6 +776,7 @@ class NetworkFactory:
                         self.save_parameters()
                         flush_rows(it)
 
+                    self._stop_requested = self._any_stop()
                     if self._stop_requested and it < total:
                         progress.clear()
                         cfg.update_iteration(it)
@@ -609,9 +817,10 @@ class NetworkFactory:
             profiler.close(it)
             for sig, handler in prev_handlers.items():
                 signal.signal(sig, handler)
-            with open(os.path.join(cfg.dirResult, "evals.{}.txt".format(
-                    cfg.trainName)), "w") as f:
-                f.writelines(eval_lines)
+            if writer:
+                with open(os.path.join(cfg.dirResult, "evals.{}.txt".format(
+                        cfg.trainName)), "w") as f:
+                    f.writelines(eval_lines)
         return {"steps": steps_this_run, "seconds": seconds,
                 "clips_per_s": steps_this_run * cfg.batchSize / seconds
                 if seconds > 0 else 0.0,

@@ -1,0 +1,145 @@
+"""Mesh serving on the CPU: ``make_device_analyzer(..., mesh=[...])``
+shards a slide's clips over a list of devices (the JAX analyzer's
+``data`` mesh axis), here two or more entries of ``"cpu"``.
+
+- real weights: the 700x600 slide (4 clips, 2 a shard) through
+  calibrated quarter-width centerOffset and corner models gives the
+  monolithic analyzer's detections exactly (on these shapes the CPU's
+  float32 forward of a clip does not depend on its batch; on the card a
+  shard of at least 24 is what makes that hold);
+- a wrapper whose rows are a function of a few pixels of each clip
+  (batch-independent by construction) on a 15-clip slide over 2, 3 and
+  4 shards: the padding to a multiple of the mesh, the padding of each
+  shard to 24, the order of the shards and the cut to the slide's clips
+  are exact, with dedupe, ``many`` and ``dispatch``/``finish``;
+- the refusals: streaming with a mesh (the JAX analyzer's error), and
+  the CLIs' ``--mesh`` errors.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from scd_resnet_tpu_torch import serve as serve_cli
+from scd_resnet_tpu_torch import test as test_cli
+from scd_resnet_tpu_torch.infer import analyse
+from scd_resnet_tpu_torch.infer.server import InferenceService
+from scd_resnet_tpu_torch.infer.synthetic import synthetic_slide
+from scd_resnet_tpu_torch.infer.wrapper import make_wrapper
+
+from torch_port_common import calibrated_variables, port_model
+
+SLIDE = synthetic_slide(600, 700, seed=21)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module: the shapes are small, and the
+    suite runs six workers on the machine's cores, where each torch
+    process's default of a thread a core oversubscribes them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+class PixelRows:
+    """A fake centerOffset wrapper: rows (10, B, 100) from two pixels of
+    each clip, each clip's rows independent of its batch; it records the
+    size of every batch it runs."""
+
+    contract = "centerOffset"
+    device = torch.device("cpu")
+
+    def __init__(self):
+        self.batches = []
+
+    def __call__(self, clips):
+        self.batches.append(clips.shape[0])
+        a = clips[:, 0, 100, 200].double()
+        b = clips[:, 0, 300, 57].double()
+        rows = torch.zeros((10, clips.shape[0], 100), dtype=torch.float32)
+        rows[0, :, 0] = (torch.sigmoid(a) * 0.5 + 0.4).float()
+        rows[2, :, 0] = (10.0 + 20 * torch.sigmoid(b)).float()
+        rows[3, :, 0] = (20.0 - 10 * torch.sigmoid(a)).float()
+        rows[6, :, 0] = 2.0
+        rows[7, :, 0] = 6.0
+        rows[8, :, 0] = a.float()
+        rows[9, :, 0] = -b.float()
+        return rows
+
+
+@pytest.mark.parametrize("family", ["centerOffset", "corner"])
+def test_mesh_detections_equal_monolithic(family, monkeypatch):
+    """Shards of 2 clips run as they are (``BATCH_SIZE`` patched to 2:
+    the padding to 24 is the pixel wrapper's test below, and 48 clip
+    forwards of a quarter-width model would cost the CPU tens of
+    seconds)."""
+    monkeypatch.setattr(analyse, "BATCH_SIZE", 2)
+    clips = analyse.make_device_tiler(700, 600, torch.device("cpu"))(
+        torch.from_numpy(SLIDE))
+    params, stats = calibrated_variables(family, 13, clips)
+    wrapper = make_wrapper(port_model(family, params, stats), family)
+    want = analyse.make_device_analyzer(wrapper, 700, 600)(SLIDE)
+    got = analyse.make_device_analyzer(wrapper, 700, 600,
+                                       mesh=["cpu", "cpu"])(SLIDE)
+    assert len(want) > 20
+    assert got == want
+
+
+@pytest.mark.parametrize("shards", [2, 3, 4])
+def test_mesh_shards_pad_and_cut_exactly(shards):
+    rng = np.random.default_rng(5)
+    gray = np.round(rng.uniform(0.0, 255.0, (900, 1700))).astype(np.uint8)
+    other = np.ascontiguousarray(gray[:, ::-1])
+    model = PixelRows()
+    mono = analyse.make_device_analyzer(model, 1700, 900, dedupe_radius=16.0)
+    want, want_other = mono(gray), mono(other)
+    assert len(want) > 0 and want_other != want
+    mesh = analyse.make_device_analyzer(model, 1700, 900, dedupe_radius=16.0,
+                                        mesh=["cpu"] * shards)
+    model.batches.clear()
+    assert mesh(gray) == want
+    assert model.batches == [analyse.BATCH_SIZE] * shards  # 15 clips
+    assert mesh.many(iter([gray, other])) == [want, want_other]
+    assert mesh.finish(mesh.dispatch(other)) == want_other
+
+
+def test_mesh_refuses_streaming():
+    model = PixelRows()
+    with pytest.raises(ValueError, match="max_resident_clips and mesh are "
+                                         "mutually exclusive"):
+        analyse.make_device_analyzer(model, 1700, 900, mesh=["cpu", "cpu"],
+                                     max_resident_clips=7)
+    # a slide that fits the bound streams nothing, as in the JAX analyzer
+    analyse.make_device_analyzer(model, 1700, 900, mesh=["cpu", "cpu"],
+                                 max_resident_clips=15)
+
+
+def test_service_reports_its_mesh():
+    model = PixelRows()
+    plain = InferenceService(model)
+    service = InferenceService(model, mesh=["cpu", "cpu"])
+    assert plain.health()["mesh"] is None
+    health = service.health()
+    assert health["mesh"] == str({"data": 2}) and health["devices"] == ["cpu"]
+    assert service.analyse_gray(SLIDE) == plain.analyse_gray(SLIDE)
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["-m", "b.pt2", "--mesh"], "--mesh requires -c"),
+    (["-c", "x.pt", "--mesh", "--max-resident-clips", "4"],
+     "--mesh/--pipelined hold more in flight"),
+    (["-c", "x.pt", "--mesh", "--device", "cpu"], "excludes --device cpu"),
+], ids=["no_checkpoint", "streaming", "cpu"])
+def test_test_cli_mesh_errors(argv, message, capsys):
+    with pytest.raises(SystemExit):
+        test_cli.main(["slide.png", *argv])
+    assert message in capsys.readouterr().err
+
+
+def test_serve_cli_mesh_errors(capsys):
+    with pytest.raises(SystemExit):
+        serve_cli.parse_args(["-c", "x.pt", "--mesh", "--device", "cpu"])
+    assert "excludes --device cpu" in capsys.readouterr().err
+    assert serve_cli.parse_args(["-c", "x.pt", "--mesh"]).mesh

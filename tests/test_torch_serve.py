@@ -2,8 +2,8 @@
 (/analyse with PNG and raw bytes, /healthz, /metrics, /warmup), the
 ``serve`` CLI's refusal to start without CUDA unless ``--device cpu``,
 and subprocesses that block ``jax``, ``flax``, ``optax`` and
-``scd_resnet_tpu`` and still import the port (``trace``, ``test`` and
-the msgpack reader among its modules), serve a clip, preprocess a small
+``scd_resnet_tpu`` and still import the port (``trace``, ``test``, the
+msgpack reader and the parallel layer among its modules), serve a clip, preprocess a small
 slide through ``python -m scd_resnet_tpu_torch.preprocess``, build
 ``DCNPooling``, and train
 through ``python -m scd_resnet_tpu_torch.train`` (the legacy CornerNet
@@ -139,6 +139,7 @@ SERVE_BLOCKED = BLOCK + textwrap.dedent("""
     from scd_resnet_tpu_torch import serve, test, trace
     from scd_resnet_tpu_torch.core import msgpack
     from scd_resnet_tpu_torch.infer.server import InferenceService
+    from scd_resnet_tpu_torch.parallel import collectives, mesh, pipeline
     from scd_resnet_tpu_torch.infer.wrapper import make_wrapper
     from scd_resnet_tpu_torch.train.registry import get_model_profile
 
