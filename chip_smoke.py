@@ -295,6 +295,7 @@ from scd_resnet_tpu_torch.infer.wrapper import (
     load_traced,
     load_wrapper,
     make_wrapper,
+    make_wrapper_for,
 )
 from scd_resnet_tpu_torch.models.deformable import DCNPooling
 from scd_resnet_tpu_torch.models.hourglass import StackHourglass
@@ -306,7 +307,11 @@ from scd_resnet_tpu_torch.ops.augment import rotation_tolerance
 from scd_resnet_tpu_torch.ops.dcn import deform_psroi_pooling
 from scd_resnet_tpu_torch.ops.image import grayscale_preprocess
 from scd_resnet_tpu_torch.ops.radius import corner_threshold_radius
-from scd_resnet_tpu_torch.parallel.mesh import full_gradients, init_distributed
+from scd_resnet_tpu_torch.parallel.mesh import (
+    TIMEOUT_S,
+    full_gradients,
+    init_distributed,
+)
 from scd_resnet_tpu_torch.parallel.pipeline import (
     StackStage,
     pipeline_apply,
@@ -2350,6 +2355,9 @@ def check_psroi(gpu_line: str, device: str = "cuda"):
 # -- 11. the parallel layer: torchrun ranks, the model axis, the pipeline, mesh serving
 
 MESH_TIMEOUT_S = 600  # one torchrun launch, start-up and every rank included
+# --cards: a launch of three jobs took 49.4 s on two cards (NVIDIA H100
+# 80GB HBM3, 700 W); a hung collective fails after 90 s
+CARDS_TIMEOUT_S, CARDS_COLLECTIVE_TIMEOUT_S = 240, 90
 STEP_SEED = 11  # the draws of phase 11's float32 steps
 PIPE_STEPS, TORCHRUN_STEPS, TIMED_STEPS = 10, 20, 10
 # one float32 exp74 step of two ranks on one card against one process:
@@ -2430,11 +2438,15 @@ def rank_job(spec_path: str) -> int:
     job's result."""
     with open(spec_path) as f:
         spec = json.load(f)
-    rank, _, _ = init_distributed(spec["device"], spec["backend"])
+    rank, _, _ = init_distributed(spec["device"], spec["backend"],
+                                  spec["timeout_s"])
     try:
         for job in spec["jobs"]:
             if job["kind"] == "step":
                 result = one_step(job["values"], spec["device"])
+            elif job["kind"] == "timed":
+                result = {"step_ms": timed_steps(job["values"],
+                                                 spec["device"])}
             else:
                 path = write_config(job["out"] + ".json", job["values"])
                 torch.cuda.reset_peak_memory_stats()
@@ -2454,14 +2466,24 @@ def rank_job(spec_path: str) -> int:
     return 0
 
 
-def torchrun(ranks: int, device: str, backend: str, jobs, work: str):
+def torchrun(ranks: int, device: str, backend: str, jobs, work: str,
+             timeout_s: float = MESH_TIMEOUT_S,
+             collective_timeout_s: float = TIMEOUT_S):
     """``jobs`` on ``ranks`` ranks started by ``torchrun`` (this script
-    with ``--rank-job``); rank 0's results, one a job."""
+    with ``--rank-job``); rank 0's results, one a job. The launch fails
+    after ``timeout_s``, a collective after ``collective_timeout_s``."""
     spec = write_config(os.path.join(work, "ranks.json"), {
-        "device": device, "backend": backend, "jobs": jobs})
+        "device": device, "backend": backend, "jobs": jobs,
+        "timeout_s": collective_timeout_s})
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
+    # ranks that share a card with this process get the memory its
+    # allocator caches from the earlier phases
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log("torchrun: {} rank(s); {:.1f} of {:.1f} GB free on this process's "
+        "card".format(ranks, free / 1024 ** 3, total / 1024 ** 3))
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
            "--nproc_per_node", str(ranks), "--master_addr", "127.0.0.1",
            "--master_port", str(port), os.path.abspath(__file__),
@@ -2471,15 +2493,22 @@ def torchrun(ranks: int, device: str, backend: str, jobs, work: str):
         proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT,
                                 start_new_session=True)
         try:
-            code = proc.wait(timeout=MESH_TIMEOUT_S)
+            code = proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            code = "timed out after {} s".format(timeout_s)
         finally:
             if proc.poll() is None:
                 os.killpg(proc.pid, 9)
                 proc.wait()
-    if code != 0:
+    if code != 0:  # each rank's last lines: the first to fail is the cause
         with open(os.path.join(work, "torchrun.log")) as f:
-            raise RuntimeError("torchrun ({} ranks, {}) failed ({}):\n{}".format(
-                ranks, backend, code, f.read()[-6000:]))
+            lines = f.read().splitlines()
+        tails = ["\n".join(line for line in lines
+                           if line.startswith("[rank{}]".format(r)))[-2500:]
+                 for r in range(ranks)]
+        raise RuntimeError("torchrun ({} ranks, {}) failed ({}):\n{}\n{}".format(
+            ranks, backend, code, "\n".join(tails),
+            "\n".join(lines)[-6000:]))
     log("torchrun: {} rank(s) on {} over {} in {:.1f}s".format(
         ranks, device, backend, time.perf_counter() - t0))
     return [torch.load(job["out"], weights_only=False) for job in jobs]
@@ -2699,6 +2728,105 @@ def check_mesh_serving(slide, build_dir):
         if per_forward:
             corner_launches = launches
     return out, corner_launches
+
+
+def cards_main() -> int:
+    """``chip_smoke.py --cards``: the parallel layer across two or more
+    cards, one rank a card on NCCL (the collectives' all-gather path).
+    exp74's float32 step on ``meshShape [2]`` and ``[1, 2]`` (data x
+    model) against the single-process step within the ``STEP_*``
+    bounds; 4 bf16 steps of the train entry point on the data mesh (a
+    validation, the rows gathered), then bf16 exp74 steps timed at the
+    global batch of 32 on one card and on the mesh (residency device, 10
+    steps after 3); ``cornerCPoolRes10`` and ``centerOffsetRes10``
+    served over a mesh of every card, detections equal to the monolithic
+    analyzer's on cuda:0. Prints a results line, the card line and the
+    last line of ``main``. Four ranks are left out: on four cards the
+    train entry point's ``[4]`` run hung after the ``[4]`` and ``[2,
+    2]`` float32 steps had passed (NVIDIA H100 80GB HBM3, 700 W)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        print("chip_smoke --cards: needs two or more CUDA cards",
+              file=sys.stderr)
+        return 1
+    cards = torch.cuda.device_count()
+    os.environ.setdefault("NCCL_DEBUG", "WARN")  # the ranks' NCCL warnings
+    gpu_line = run(["nvidia-smi", "--query-gpu=name,power.limit",
+                    "--format=csv,noheader"])
+    log("cards: {}\n{}".format(cards, gpu_line))
+    reproducible_float32()
+    build_dir = os.path.join(REPO, "build", "chip_smoke_cards")
+    data_dir = os.path.join(build_dir, "data")
+    work = os.path.join(build_dir, "torchrun")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    archive = os.path.join(data_dir, "scdx16p100.d")
+    writer = start_archive(archive)
+    try:
+        with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+            list(pool.map(cuda_build.build, KERNEL_SOURCES))
+        for source in KERNEL_SOURCES:
+            cuda_build.load(source)
+        finish_archive(writer, archive)
+    finally:
+        if writer is not None and writer.poll() is None:
+            writer.kill()
+            writer.wait()
+    step_values = settings(EXP74, data_dir, os.path.join(work, "single"),
+                           precision="float32", residency="host")
+    timed_values = settings(EXP74, data_dir, os.path.join(work, "timed"))
+    single = one_step(step_values, "cuda")
+    out = {"cards": cards, "card": gpu_line, "steps": {},
+           "step_ms": {"1 card": timed_steps(timed_values, "cuda")}}
+
+    shapes = [[2], [1, 2]]
+    jobs = [{"kind": "step", "values": dict(
+        step_values, meshShape=shape, dirTemp=os.path.join(
+            work, "{}/".format(k))),
+        "out": os.path.join(work, "step_{}.pt".format(k))}
+        for k, shape in enumerate(shapes)]
+    jobs.append({"kind": "train", "values": dict(settings(
+        EXP74, data_dir, os.path.join(work, "train"), iterations=4,
+        validation=4, snapshot=4), meshShape=[2]),
+        "out": os.path.join(work, "train.pt")})
+    got = torchrun(2, "cuda", "nccl", jobs, work, timeout_s=CARDS_TIMEOUT_S,
+                   collective_timeout_s=CARDS_COLLECTIVE_TIMEOUT_S)
+    for shape, result in zip(shapes, got):
+        name = "meshShape {} on 2 cards (NCCL)".format(shape)
+        out["steps"][name] = compare_steps(
+            result, single, "exp74, " + name + ", float32 step")
+        out["steps"][name]["sharded"] = result["sharded"]
+    out["step_ms"]["meshShape [2]"] = got[-1]["step_ms"]
+    log("exp74 bf16 step, global batch 32: {} ms".format(out["step_ms"]))
+    slide = synthetic_slide(SLIDE_H, SLIDE_W, seed=2056)
+    devices = ["cuda:{}".format(i) for i in range(cards)]
+    out["mesh_serving"] = {}
+    for arch, seed in (("cornerCPoolRes10", 10), ("centerOffsetRes10", 11)):
+        clips = make_device_tiler(SLIDE_W, SLIDE_H, torch.device("cuda:0"))(
+            torch.from_numpy(slide).to("cuda:0"))
+        wrapper = make_wrapper_for(get_model_profile(arch), seeded_model(
+            arch, seed, clips).state_dict(), "cuda:0")
+        want = make_device_analyzer(wrapper, SLIDE_W, SLIDE_H)(slide)
+        mesh = make_device_analyzer(wrapper, SLIDE_W, SLIDE_H, mesh=devices)
+        mesh(slide)  # first call: cuDNN's algorithm choice on each card
+        for device in devices:
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        got = mesh(slide)
+        ms = (time.perf_counter() - t0) * 1e3
+        if not want or got != want:
+            raise AssertionError("{}: detections over {} ({}) differ from "
+                                 "the monolithic ones ({})".format(
+                                     arch, devices, len(got), len(want)))
+        log("{} over mesh {}: {} detections, equal to the monolithic "
+            "analyzer's; {:.1f} ms a request".format(arch, devices, len(got),
+                                                     ms))
+        out["mesh_serving"][arch] = {"detections": len(got), "ms": ms}
+    log(json.dumps(out))
+    log(gpu_line)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": cards}}))
+    return 0
 
 
 def main() -> int:
@@ -2926,4 +3054,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--rank-job":
         sys.exit(rank_job(sys.argv[2]))
+    if sys.argv[1:] == ["--cards"]:
+        sys.exit(cards_main())
     sys.exit(main())

@@ -182,27 +182,21 @@ class SCDDataset:
     def __len__(self) -> int:
         return len(self.order)
 
-    def steps_per_epoch(self, batch_size: int, shard_count: int = 1,
-                        shard_index: int = 0) -> int:
-        """Batches per epoch (drop_last) for each of ``shard_count``
-        hosts, from the smallest shard so that every host agrees (the JAX
-        dataset's rule)."""
-        del shard_index  # the same on every shard by construction
-        return (len(self.order) // shard_count) // batch_size
+    def steps_per_epoch(self, batch_size: int) -> int:
+        """Batches per epoch (drop_last)."""
+        return len(self.order) // batch_size
 
-    def epoch_batches(self, batch_size: int, epoch: int, skip: int = 0, *,
-                      shard_count: int = 1, shard_index: int = 0
+    def epoch_batches(self, batch_size: int, epoch: int, skip: int = 0
                       ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
         """One epoch of host (samples, locs, counts) batches in the
-        (seed, epoch)-keyed order, starting ``skip`` batches in; with
-        ``shard_count`` > 1, host ``shard_index``'s batches from every
-        ``shard_count``-th row of that order (the JAX dataset's per-host
-        split, the DistributedSampler's)."""
+        (seed, epoch)-keyed order, starting ``skip`` batches in. On a data
+        axis every rank reads the global batch and trains its own rows
+        (``parallel/mesh.shard_rows``)."""
         rng = np.random.default_rng((self._seed, 7919, int(epoch)))
         order = np.asarray(self.order)
-        order = order[rng.permutation(len(order))][shard_index::shard_count]
-        steps = self.steps_per_epoch(batch_size, shard_count)
-        for start in range(skip * batch_size, steps * batch_size,
+        order = order[rng.permutation(len(order))]
+        for start in range(skip * batch_size,
+                           self.steps_per_epoch(batch_size) * batch_size,
                            batch_size):
             idx = order[start:start + batch_size]
             yield self.samples[idx], self.locs[idx], self.counts[idx]

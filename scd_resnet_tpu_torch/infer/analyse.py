@@ -508,11 +508,12 @@ def make_device_analyzer(wrapper: Callable, width: int, height: int,
 
     ``mesh``: a list of devices (the JAX analyzer's ``data`` mesh axis;
     ``serve --mesh`` and ``test --mesh`` pass every visible card). The
-    slide's clips are padded with blank clips to a multiple of its length
-    and split in order, shard i on ``mesh[i]``; a distinct device gets
-    its own copy of the model; every shard's upload, tiling, forward and
-    decode are queued before any rows are read back, then the rows are
-    concatenated and cut to the slide's clips. A shard of fewer than
+    slide is uploaded to and tiled on ``mesh[0]`` once; its clips are
+    padded with blank clips to a multiple of the mesh's length and split
+    in order, shard i copied to ``mesh[i]``; a distinct device gets its
+    own copy of the model; every shard's copy, forward and decode are
+    queued before any rows are read back, then the rows are concatenated
+    and cut to the slide's clips. A shard of fewer than
     ``BATCH_SIZE`` clips runs padded to that batch, as a short band does.
     A device may be named more than once (two shards on one card). It
     excludes streaming: a slide that ``max_resident_clips`` would stream
@@ -594,26 +595,22 @@ def make_device_analyzer(wrapper: Callable, width: int, height: int,
             if dev not in copies:
                 copies[dev] = make_wrapper(copy.deepcopy(wrapper.model)
                                            .to(dev), contract)
-        tilers = {dev: make_device_tiler(width, height, dev)
-                  for dev in copies}
+        tiler = make_device_tiler(width, height, devices[0])
         per = -(-n_clips // len(devices))  # clips a shard, padded
 
         def dispatch(gray: np.ndarray):
-            gray = coerce_gray_u8(gray)
-            inflight, clips = [], {}
+            host, gray_dev = upload(coerce_gray_u8(gray), devices[0])
             with torch.inference_mode():
-                for dev in dict.fromkeys(devices):
-                    host, gray_dev = upload(gray, dev)
-                    inflight += [host, gray_dev]
-                    clips[dev] = tilers[dev](gray_dev)
+                clips = tiler(gray_dev)
                 shards = []
                 for i, dev in enumerate(devices):
-                    shard = clips[dev][i * per:(i + 1) * per]
+                    shard = clips[i * per:(i + 1) * per]
                     if shard.shape[0] < per:  # blank clips to the shard size
                         shard = torch.cat([shard, shard.new_zeros(
                             (per - shard.shape[0], *shard.shape[1:]))])
-                    shards.append(padded_rows(copies[dev], shard))
-            return (shards, inflight)
+                    shards.append(padded_rows(
+                        copies[dev], shard.to(dev, non_blocking=True)))
+            return (shards, [host, gray_dev, clips])
 
     else:
         tiler = make_device_tiler(width, height, device)

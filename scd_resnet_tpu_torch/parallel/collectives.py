@@ -1,11 +1,13 @@
 """The collectives of the parallel layer, over ``torch.distributed``
 process groups.
 
-Every collective here is an all-reduce: gloo reduces CUDA tensors but
-gathers only CPU ones, and NCCL takes only CUDA tensors, so a gather is
-the sum of zero-filled full-size tensors, each rank's block written at
-its offset (``x + 0`` is ``x`` exactly). Half-precision and boolean
-tensors cross the wire as float32 and uint8, exactly.
+A gather is one rule, :func:`_gather`: on NCCL an
+``all_gather_into_tensor``; on gloo, which reduces CUDA tensors but
+gathers only CPU ones (ranks that share a card, the CPU tests), the sum
+of zero-filled full-size tensors, each rank's block written at its
+offset (``x + 0`` is ``x`` exactly), at about twice the bytes.
+Half-precision and boolean tensors cross the wire as float32 and uint8,
+exactly.
 
 - :func:`all_reduce_sum`: differentiable sum; its backward sums the
   gradients as well, the rule for a value every rank's loss reads
@@ -64,6 +66,19 @@ def block_pad(x: torch.Tensor, index: int, size: int, dim: int
     return torch.cat(parts, dim) if len(parts) > 1 else x
 
 
+def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in rank order (module
+    docstring: all-gather on NCCL, a padded sum on gloo)."""
+    index, size = dist.get_rank(group), dist.get_world_size(group)
+    if dist.get_backend(group) != dist.Backend.NCCL:
+        return reduce_sum_(block_pad(x, index, size, dim).contiguous(),
+                           group)
+    wire = _wire(x.movedim(dim, 0)).contiguous()
+    out = wire.new_empty((size * wire.shape[0],) + tuple(wire.shape[1:]))
+    dist.all_gather_into_tensor(out, wire, group=group)
+    return out.to(x.dtype).movedim(0, dim).contiguous()
+
+
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -99,11 +114,9 @@ def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
 class _GatherFromGroup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim = group, dim
+        ctx.dim = dim
         ctx.index, ctx.n = dist.get_rank(group), x.shape[dim]
-        size = dist.get_world_size(group)
-        return reduce_sum_(block_pad(x, ctx.index, size, dim).contiguous(),
-                           group)
+        return _gather(x, group, dim)
 
     @staticmethod
     def backward(ctx, grad):

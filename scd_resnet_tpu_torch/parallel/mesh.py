@@ -38,10 +38,8 @@ from scd_resnet_tpu_torch.models.deformable import DCN
 from scd_resnet_tpu_torch.models.layers import autocast_off
 from scd_resnet_tpu_torch.ops.dcn import deform_conv2d
 from scd_resnet_tpu_torch.parallel.collectives import (
-    block_pad,
     copy_to_group,
     gather_from_group,
-    reduce_sum_,
 )
 
 DEFAULT_AXES = {1: ("data",), 2: ("data", "model"),
@@ -337,10 +335,8 @@ def shard_model(model: nn.Module, mesh: Mesh, axis: str = "model"
 def gather_full(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The full tensor of a rank's slice ``t`` along ``dim`` (no
     gradient)."""
-    size, index = dist.get_world_size(group), dist.get_rank(group)
     with torch.no_grad():
-        return reduce_sum_(block_pad(t.detach(), index, size, dim)
-                           .contiguous(), group)
+        return gather_from_group(t.detach(), group, dim)
 
 
 def slice_local(t: torch.Tensor, dim: int, mesh: Mesh, axis: str = "model"

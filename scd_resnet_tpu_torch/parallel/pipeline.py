@@ -18,88 +18,24 @@ drain ticks a repeated microbatch and masks their results), so a stage
 in train mode moves its BatchNorm statistics once a microbatch, in
 microbatch order: :func:`pipeline_train_apply`'s semantics come from the
 eager schedule alone.
+
+A stage is :class:`StackStage`, a view of one stack of the plain model.
+The JAX package's homogeneous ``HourglassPipelineStage`` (every stage
+with a merge, so that the stage trees stack over the ``pipe`` axis) and
+its ``init_stage_stack`` have no counterpart: here the stages are a
+list of modules on their own devices, and nothing needs them alike.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
 
-from scd_resnet_tpu_torch.models.hourglass import Hourglass, StackHourglass
-from scd_resnet_tpu_torch.models.layers import (
-    BatchNorm,
-    ConvBlock,
-    batch_norm,
-    checkpointed,
-    conv1x1,
-)
-from scd_resnet_tpu_torch.models.resnet import (
-    Residual,
-    TerminalHead,
-    TerminalSpec,
-    init_like_flax,
-)
+from scd_resnet_tpu_torch.models.hourglass import StackHourglass
+from scd_resnet_tpu_torch.models.layers import BatchNorm, checkpointed
 from scd_resnet_tpu_torch.parallel.collectives import reduce_sum_
-
-
-class HourglassPipelineStage(nn.Module):
-    """One stage: hourglass -> prediction ConvBlock -> head(s), and the
-    inter-stack merge (shortcut conv + BN, previous-prediction conv + BN,
-    ReLU of their sum, a ``Residual``) that makes the next stage's input.
-    Returns ``(next_inter, head)``, ``next_inter`` shaped like the input.
-    Every stage computes the merge, so all stages are alike (the JAX
-    stage's homogeneous-stage form); ``terminals`` (name, features,
-    bias) gives a dict of heads, else one anonymous head of
-    ``head_features``."""
-
-    def __init__(self, iterations: int = 5,
-                 dimensions: Sequence[int] = (128, 128, 192, 192, 192, 256),
-                 modules: Sequence[int] = (2, 2, 2, 2, 2, 4),
-                 prediction_dim: int = 256, head_features: int = 1,
-                 head_bias: Optional[float] = -2.19,
-                 terminals: Optional[Sequence[Tuple[str, int, Any]]] = None,
-                 pool_downsample: bool = False):
-        super().__init__()
-        cur = dimensions[0]
-        self.hourglass = Hourglass(iterations, dimensions, modules,
-                                   pool_downsample)
-        self.prediction = ConvBlock(cur, prediction_dim)
-        self.terminals = terminals
-        if terminals is None:
-            self.head = TerminalHead(prediction_dim, TerminalSpec(
-                "head", head_features, cur, final_bias=head_bias), block=True)
-        else:
-            self.heads = nn.ModuleDict({
-                name: TerminalHead(prediction_dim, TerminalSpec(
-                    name, features, cur, final_bias=bias), block=True)
-                for name, features, bias in terminals})
-        self.shortcut = nn.Sequential(conv1x1(cur, cur), batch_norm(cur))
-        self.previous = nn.Sequential(conv1x1(prediction_dim, cur),
-                                      batch_norm(cur))
-        self.residual = Residual(cur, cur)
-
-    def forward(self, inter: torch.Tensor):
-        cnv = self.prediction(self.hourglass(inter))
-        head = self.head(cnv) if self.terminals is None else \
-            {name: h(cnv) for name, h in self.heads.items()}
-        nxt = torch.relu(self.shortcut(inter) + self.previous(cnv))
-        return self.residual(nxt), head
-
-
-def init_stage_stack(make_stage, n_stages: int,
-                     generator: torch.Generator) -> List[nn.Module]:
-    """``n_stages`` independently initialised stages from
-    ``make_stage()`` (flax's initialisers, ``init_like_flax``), the
-    counterpart of the JAX ``init_stage_stack``: a list, not a stacked
-    tree, since each stage is placed on its own device."""
-    stages = []
-    for _ in range(n_stages):
-        stage = make_stage()
-        init_like_flax(stage, generator)
-        stages.append(stage)
-    return stages
 
 
 def _stack(items: List[Any]) -> Any:

@@ -70,7 +70,8 @@ trainer's ``factory.py:177-277``), for ranks started by ``torchrun``:
   divide runs whole on every rank), so every rank gets the same lines;
   only rank 0 writes checkpoints, loss rows, evals, telemetry, traces
   and overlays; every rank loads the same checkpoint; a stop request on
-  any rank stops them all at the same step.
+  any rank stops them all at the same step (the flag summed on the host
+  each step over a gloo group, so the check waits for no card).
 
 A run without ``torchrun`` and without ``meshShape`` takes none of these
 paths; a mesh of one rank and one device computes what it computes.
@@ -346,6 +347,10 @@ class NetworkFactory:
             shape, axes, stage_devices(device, pipe, local_rank),
             batch_size=cfg.batchSize, world_size=self.world, rank=self.rank)
         self.device = self.mesh.devices[0]
+        # the stop flag's group: gloo on host tensors, so the per-step
+        # check waits for the other ranks' loops and not for the card
+        self._host_group = dist.new_group(backend="gloo") \
+            if self.world > 1 else None
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
         self.data_group = self.mesh.group("data")
@@ -403,11 +408,11 @@ class NetworkFactory:
 
     def _any_stop(self) -> bool:
         """Whether any rank asked to stop (every rank calls it each
-        step)."""
+        step), summed on the host over ``self._host_group``."""
         if self.world == 1:
             return self._stop_requested
-        flag = torch.tensor([float(self._stop_requested)], device=self.device)
-        return bool(reduce_sum_(flag, None).item() > 0)
+        flag = torch.tensor([float(self._stop_requested)])
+        return bool(reduce_sum_(flag, self._host_group).item() > 0)
 
     def request_stop(self, signum=None, frame=None) -> None:
         """Stop at the next step boundary with a full checkpoint (the

@@ -29,10 +29,17 @@ Tolerances, each with its reason:
   gradients summed over ranks, other summation orders of the same terms;
 - against JAX: the first step's loss 1e-4 relative (the two frameworks'
   float32 convolutions, as ``test_torch_train.py``), the later steps'
-  2e-3, and the parameters after three steps within 2 lr x 3 absolute:
-  Adam moves an element by about lr a step whatever its gradient's size,
-  so an element whose gradient is at rounding level may move either way
-  on either side (``test_torch_train.py``'s free-running check);
+  2e-3 (the runs drift apart, as ``test_torch_train.py``'s free runs);
+  the first step's gradients, JAX's read back from Adam's first moment,
+  within ``JAX_GRAD_TOL`` (1e-4) of each tensor's largest G, the bound
+  of the one-process comparison above (the two frameworks' float32
+  gradients differ here by at most about 4e-6 G on the CPU; a rank's
+  half-batch gradient, unsummed, is off by about half of G); and the
+  parameters after the first update within 1e-2 lr of JAX's wherever
+  JAX's gradient is above ``ROUNDING`` (1e-3) G, at most a tenth of the
+  elements not: Adam's first update moves an element by about lr
+  whatever its gradient's size, so a rounding-level gradient of the
+  other sign puts it 2 lr away (``test_torch_train.py``'s synced check);
 - data x model against data parallelism: losses within 2e-3 relative,
   the JAX package's contract for the same comparison
   (``tests/test_mesh_config.py``), and gradients within 1e-4 of each
@@ -69,6 +76,8 @@ from torch_port_common import jax_draws
 ARCH = "centerOffsetRes10q"
 LR = 1e-3
 STEPS = 3
+JAX_GRAD_TOL = 1e-4  # the first step's gradients against JAX's, of G
+ROUNDING = 1e-3  # a gradient's rounding level, as a share of G
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -173,8 +182,13 @@ def runs(tmp_path_factory):
         jax_losses.append(float(loss))
         resident_steps.append({"idx": idx.astype(np.int64),
                                "draws": jax_draws(key, 4, 64)})
-    jax_state = state_dict_from_flax(ARCH, _tree(jfac.params),
-                                     _tree(jfac.batch_stats))
+        if step == 0:
+            # the first step's gradient from Adam's first moment (mu = 0.1
+            # g after one step from 0), and the parameters it made
+            stats = _tree(jfac.batch_stats)
+            mu = state_dict_from_flax(ARCH, _tree(jfac.opt_state[0].mu),
+                                      stats)
+            jax_first = state_dict_from_flax(ARCH, _tree(jfac.params), stats)
 
     host_steps = _host_steps(path)
     positive_steps = _positive_steps(path)
@@ -201,7 +215,8 @@ def runs(tmp_path_factory):
     return {"root": root, "path": path, "state": state, "ranks": ranks,
             "host_steps": host_steps, "positive_steps": positive_steps,
             "resident_steps": resident_steps, "jax_losses": jax_losses,
-            "jax_state": jax_state,
+            "jax_first": jax_first,
+            "jax_grads": {k: v / 0.1 for k, v in mu.items()},
             "single": _single(root / "single", path, state, host_steps),
             "single_positives": _single(root / "single_pos", path, state,
                                         positive_steps)}
@@ -239,13 +254,23 @@ def test_two_data_ranks_against_jax_data_mesh(runs):
     losses = [row[0] for row in got["losses"]]
     np.testing.assert_allclose(losses[0], runs["jax_losses"][0], rtol=1e-4)
     np.testing.assert_allclose(losses, runs["jax_losses"], rtol=2e-3)
-    want = runs["jax_state"]
-    for key, value in want.items():
-        if key.endswith(("running_mean", "running_var",
-                         "num_batches_tracked")):
-            continue
-        np.testing.assert_allclose(got["state"][key].numpy(), value.numpy(),
-                                   rtol=0, atol=2 * LR * STEPS, err_msg=key)
+    n_rounding = n_all = 0
+    for name, g in got["grads"].items():
+        want = runs["jax_grads"][name]
+        scale = want.abs().max().item()
+        assert scale > 0, name
+        np.testing.assert_allclose(g.numpy(), want.numpy(), rtol=0,
+                                   atol=JAX_GRAD_TOL * scale, err_msg=name)
+        # the first update, from the same state, where it is not a sign
+        # away from rounding level
+        keep = want.abs() > ROUNDING * scale
+        n_rounding += int((~keep).sum())
+        n_all += keep.numel()
+        np.testing.assert_allclose(
+            got["first_state"][name][keep].numpy(),
+            runs["jax_first"][name][keep].numpy(), rtol=0, atol=1e-2 * LR,
+            err_msg=name)
+    assert n_rounding <= 0.1 * n_all
 
 
 def test_data_by_model_axis_against_data_parallel(runs):

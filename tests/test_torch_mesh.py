@@ -1,7 +1,10 @@
 """The port's mesh (``parallel/mesh.py``) against the JAX package's:
 ``mesh_from_config``'s geometry and refusals, message for message, and
 the tensor-parallel sharding rule, parameter for parameter through the
-converter's key map, on the conftest's eight virtual CPU devices.
+converter's key map, on the conftest's eight virtual CPU devices; and
+the dataset's resident shards (``device_shards``,
+``steps_per_epoch_resident``, ``epoch_local_indices``) against the JAX
+dataset's.
 
 The port lays the ``data`` and ``model`` axes over ``torchrun`` ranks
 and the ``pipe`` axis over a rank's devices, so a JAX mesh over N
@@ -15,9 +18,12 @@ import numpy as np
 import pytest
 import torch
 
+from scd_resnet_tpu.data.dataset import SCDDataset as JaxDataset
 from scd_resnet_tpu.parallel.mesh import mesh_from_config as jax_mesh_from_config
 from scd_resnet_tpu.parallel.mesh import tree_param_shardings as jax_shardings
 from scd_resnet_tpu_torch.core.convert import state_dict_from_flax
+from scd_resnet_tpu_torch.data.dataset import SCDDataset
+from scd_resnet_tpu_torch.data.synthetic import make_archive
 from scd_resnet_tpu_torch.parallel import mesh as port_mesh
 from scd_resnet_tpu_torch.train.registry import get_model_profile
 
@@ -139,3 +145,35 @@ def test_sharded_parameters_match_jax():
     # a one-axis data mesh replicates everything (plain data parallelism)
     assert not any(port_mesh.tree_param_shardings(
         port_mesh.Mesh(("data",), (8,)), port).values())
+
+
+@pytest.fixture(scope="module")
+def archive(tmp_path_factory):
+    """A tiny synthetic archive: 16 training rows of 64^2."""
+    path = str(tmp_path_factory.mktemp("shards") / "scdx16p100.d")
+    make_archive(path, num_images=2, reps=2, clips_per_image=5, size=64)
+    return path
+
+
+@pytest.mark.parametrize("shards,batch", [(2, 4), (4, 4), (2, 6)])
+def test_resident_shards_match_jax(archive, shards, batch):
+    """The data ranks' resident rows, the epoch length and every epoch's
+    shard-major index vectors equal the JAX dataset's (6 rows over 2
+    shards leaves a tail of 2 rows a shard)."""
+    port = SCDDataset(archive, None, test_set=4, seed=42, device="cpu")
+    ref = JaxDataset(archive, None, test_set=4, seed=42)
+    rows, local = port.device_shards(shards)
+    want_rows, want_local = ref.device_shards(shards)
+    assert [r.tolist() for r in rows] == [r.tolist() for r in want_rows]
+    assert [t.tolist() for t in local] == [t.tolist() for t in want_local]
+    steps = port.steps_per_epoch_resident(batch, shards, local)
+    assert steps == ref.steps_per_epoch_resident(batch, shards, want_local)
+    assert steps > 1
+    for epoch, skip in ((0, 0), (3, 1)):
+        got = list(port.epoch_local_indices(batch, epoch, skip,
+                                            num_shards=shards,
+                                            local_train=local))
+        want = list(ref.epoch_local_indices(batch, shards, want_local,
+                                            epoch, skip))
+        assert len(got) == steps - skip
+        assert [g.tolist() for g in got] == [w.tolist() for w in want]

@@ -1,14 +1,16 @@
 """The GPipe hourglass pipeline (``parallel/pipeline.py``) against the
 JAX package's, and the trainer's ``pipe`` axis.
 
-- ``pipeline_apply`` and ``sequential_apply`` of ``HourglassPipelineStage``
-  at the geometry of ``tests/test_pipeline_parallel.py`` (2 and 4 stages,
-  3 microbatches of 2), JAX's stage weights converted: heads and
-  parameter gradients of sum(heads^2) against JAX's ``pipeline_apply``
-  within 1e-4 of each tensor's largest magnitude (float32 convolutions
-  sum in another order in each framework), and the port's schedule
-  against its own sequential loop bit for bit (the same operations on
-  the same inputs);
+- ``pipeline_apply`` and ``sequential_apply`` of the trainer's stages
+  (``StackStage``, views of a plain stacked hourglass's stacks) at the
+  geometry of ``tests/test_pipeline_parallel.py`` (2 and 4 stages, 3
+  microbatches of 2), the plain model's weights converted from JAX's and
+  split into JAX's stages by its ``split_stack_variables``, as the JAX
+  trainer splits them: heads and parameter gradients of sum(heads^2)
+  against JAX's ``pipeline_apply`` within 1e-4 of each tensor's largest
+  magnitude (float32 convolutions sum in another order in each
+  framework), and the port's schedule against its own sequential loop
+  bit for bit (the same operations on the same inputs);
 - ``make_pipelined_stack_forward`` on a small two-stack hourglass
   (``TINY``: one hourglass level, the widths of
   ``torch_port_common.HOURGLASS_SMALL``) with 2 microbatches in train
@@ -49,11 +51,11 @@ from torch_port_common import (
     HOURGLASS_HEAD_PATHS,
     HOURGLASS_SMALL,
     SmallCenterNetHourglass,
-    _randomize,
     flax_variables,
     nchw,
 )
 
+# the stages' geometry (tests/test_pipeline_parallel.py's)
 GEO = dict(iterations=2, dimensions=(8, 8, 16), modules=(1, 1, 1),
            prediction_dim=8)
 # the pipelined detector against JAX's: one level keeps JAX's compile of
@@ -82,146 +84,146 @@ def _close(got, want, tol, what):
                                atol=tol * scale + 1e-30, err_msg=what)
 
 
-def _stage_state(params, stats, stage):
-    """A JAX ``HourglassPipelineStage``'s scope as the port stage's state
-    dict (the converter's walks of its parts)."""
-    sd = {}
-    w = convert._Writer(sd, params, stats)
-    convert._hourglass(w.sub("Hourglass_0"), "hourglass", stage.hourglass)
-    w.conv_block("prediction", "ConvBlock_0")
-    convert._block_head(w.sub("HourglassHead_0"), "head", "ConvBlock_0",
-                        "Conv_0")
-    for j, key in enumerate(("shortcut", "previous")):
-        w.conv(key + ".0", "Conv_{}".format(j))
-        w.bn(key + ".1", "BatchNorm_{}".format(j))
-    convert._residual(w.sub("Residual_0"), "residual", stage.residual)
-    return sd
-
-
 def _nhwc(t):
     return t.permute(*range(t.dim() - 3), -2, -1, -3).detach().numpy()
 
 
-@pytest.fixture(scope="module", params=[2, 4], ids=["2stages", "4stages"])
-def stages(request):
-    """JAX's stacked stage variables (seeded weights and statistics), the
-    port's stages converted from them, and 3 microbatches of 2."""
-    n = request.param
-    stage = jax_pipeline.HourglassPipelineStage(
-        **GEO, head_features=1, pool_downsample=True)
-    stacked = jax_pipeline.init_stage_stack(
-        stage, jax.random.PRNGKey(n), jnp.zeros((MB, 8, 8, 8)), n)
-    rng = np.random.default_rng(30 + n)
-    trees = []
-    for s in range(n):
-        one = jax.tree_util.tree_map(lambda a, s=s: np.asarray(a[s]),
-                                     stacked)
-        trees.append((_randomize(one["params"], rng),
-                      _randomize(one["batch_stats"], rng)))
-    stacked = jax.tree_util.tree_map(
-        lambda *leaves: jnp.stack(leaves),
-        *[{"params": p, "batch_stats": b} for p, b in trees])
-    port = []
-    for params, stats in trees:
-        module = pipeline.HourglassPipelineStage(
-            **GEO, head_features=1, pool_downsample=True)
-        module.load_state_dict(_stage_state(params, stats, module),
-                               strict=True)
-        port.append(module.eval())
-    mbs = rng.normal(size=(MICRO, MB, 8, 8, 8)).astype(np.float32)
-    mesh = Mesh(np.array(jax.devices()[:n]), ("pipe",))
-
-    def apply_fn(variables, x):
-        return stage.apply(variables, x, False)
-
-    def loss(params):
-        heads = jax_pipeline.pipeline_apply(
-            apply_fn, {"params": params,
-                       "batch_stats": stacked["batch_stats"]},
-            jnp.asarray(mbs), mesh)
-        return jnp.sum(heads ** 2), heads
-
-    # JAX's heads and gradients through its pipeline, and its sequential
-    # loop's heads, each one compile
-    (_, heads), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
-        stacked["params"])
-    want_seq = jax.jit(lambda v, m: jax_pipeline.sequential_apply(
-        apply_fn, v, m))(stacked, jnp.asarray(mbs))
-    return n, stacked, port, mbs, heads, want_seq, grads
-
-
-def _port_run(port, mbs, schedule):
-    for module in port:
-        module.zero_grad(set_to_none=True)
-    x = torch.from_numpy(mbs).permute(0, 1, 4, 2, 3)
-    if schedule == "pipeline":
-        heads = pipeline.pipeline_apply(port, x, [CPU] * len(port))
-    else:
-        heads = pipeline.sequential_apply(port, x)
-    (heads ** 2).sum().backward()
-    # the last stage's merge feeds nothing: no gradient (JAX's is zero)
-    return heads.detach(), [
-        {k: torch.zeros_like(p) if p.grad is None else p.grad.clone()
-         for k, p in m.named_parameters()} for m in port]
-
-
-def test_pipeline_apply_heads_match_jax(stages):
-    n, _, port, mbs, want, want_seq, _ = stages
-    assert want.shape == want_seq.shape == (n, MICRO, MB, 8, 8, 1)
-    got, _ = _port_run(port, mbs, "pipeline")
-    seq, _ = _port_run(port, mbs, "sequential")
-    assert got.shape == (n, MICRO, MB, 1, 8, 8)
-    assert torch.equal(got, seq)
-    _close(_nhwc(got), want, 1e-4, "heads against pipeline_apply")
-    _close(_nhwc(got), want_seq, 1e-4, "heads against sequential_apply")
-
-
-def test_pipeline_apply_gradients_match_jax(stages):
-    n, stacked, port, mbs, _, _, grads = stages
-    stats = stacked["batch_stats"]
-    _, got = _port_run(port, mbs, "pipeline")
-    _, seq = _port_run(port, mbs, "sequential")
-    for s in range(n):
-        tree = jax.tree_util.tree_map(lambda a, s=s: np.asarray(a[s]), grads)
-        one_stats = jax.tree_util.tree_map(lambda a, s=s: np.asarray(a[s]),
-                                           stats)
-        want = _stage_state(tree, one_stats, port[s])
-        assert got[s].keys() <= want.keys()
-        assert sum(float(g.abs().sum()) for g in got[s].values()) > 0, s
-        for name, g in got[s].items():
-            assert torch.equal(g, seq[s][name]), (s, name)
-            _close(g.numpy(), want[name].numpy(), 1e-4,
-                   "stage {} {}".format(s, name))
-
-
-# -- the trainer's pipelined forward on the plain stacked hourglass ------------
-
-class _TinyStack(flax_nn.Module):
-    """The JAX stacked hourglass at ``TINY``, under the detector's
+class _JaxStack(flax_nn.Module):
+    """The JAX stacked hourglass at a given geometry, under the detector's
     ``StackHourglass_0`` scope."""
+
+    stacks: int
+    iterations: int
+    dimensions: tuple
+    modules: tuple
+    prediction_dim: int
 
     @flax_nn.compact
     def __call__(self, x, train: bool = False):
         from scd_resnet_tpu.models.hourglass import StackHourglass
 
         return StackHourglass(
-            hourglass_iterations=TINY["iterations"], stacks=2,
-            dimensions=TINY["dimensions"], modules=TINY["modules"],
-            prediction_dim=TINY["prediction_dim"],
+            hourglass_iterations=self.iterations, stacks=self.stacks,
+            dimensions=self.dimensions, modules=self.modules,
+            prediction_dim=self.prediction_dim,
             terminals=HOURGLASS_TERMINALS, pool_downsample=False)(x, train)
 
 
+def _head_paths(stacks: int):
+    return tuple("StackHourglass_0/{}_{}/Conv_0".format(head, s)
+                 for head, _, _ in HOURGLASS_TERMINALS
+                 for s in range(stacks))
+
+
+def _port_stacked(params, stats, model):
+    """The port model's state dict (or gradients) from a JAX
+    ``StackHourglass_0`` scope, through the converter."""
+    sd = {}
+    convert._stacked(convert._Writer(sd, params, stats).sub(
+        "StackHourglass_0"), model)
+    return sd
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=["2stages", "4stages"])
+def stages(request):
+    """A plain stacked hourglass of n stacks at ``GEO`` with seeded
+    weights: JAX's stage variables split from it, the port's stages on
+    the same model converted, and 3 microbatches of 2."""
+    n = request.param
+    params, stats = flax_variables(_JaxStack(stacks=n, **GEO), 30 + n,
+                                   heads=_head_paths(n))
+    model = CenterNetHourglass(stacks=n, **GEO)
+    model.load_state_dict(_port_stacked(params, stats, model), strict=True)
+    model.eval()
+    port = [pipeline.StackStage(model, s) for s in range(n)]
+    names = tuple(name for name, _, _ in HOURGLASS_TERMINALS)
+    stage = jax_pipeline.HourglassPipelineStage(
+        **GEO, terminals=HOURGLASS_TERMINALS, pool_downsample=False)
+    rng = np.random.default_rng(40 + n)
+    mbs = rng.normal(size=(MICRO, MB, 8, 8, GEO["dimensions"][0])).astype(
+        np.float32)
+    mesh = Mesh(np.array(jax.devices()[:n]), ("pipe",))
+
+    def apply_fn(variables, x):
+        return stage.apply(variables, x, False)
+
+    def split(p):
+        return jax_pipeline.split_stack_variables(
+            {"params": p["StackHourglass_0"],
+             "batch_stats": stats["StackHourglass_0"]}, n, names)[1]
+
+    def loss(p):
+        heads = jax_pipeline.pipeline_apply(apply_fn, split(p),
+                                            jnp.asarray(mbs), mesh)
+        return sum(jnp.sum(h ** 2) for h in
+                   jax.tree_util.tree_leaves(heads)), heads
+
+    # JAX's heads and gradients (to the plain tree, through the split)
+    # through its pipeline, and its sequential loop's heads, each one
+    # compile
+    (_, heads), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        params)
+    want_seq = jax.jit(lambda p, m: jax_pipeline.sequential_apply(
+        apply_fn, split(p), m))(params, jnp.asarray(mbs))
+    grads = jax.tree_util.tree_map(np.asarray, grads)
+    return (n, model, port, mbs, heads, want_seq,
+            _port_stacked(grads, stats, model))
+
+
+def _port_run(model, port, mbs, schedule):
+    model.zero_grad(set_to_none=True)
+    x = torch.from_numpy(mbs).permute(0, 1, 4, 2, 3)
+    if schedule == "pipeline":
+        heads = pipeline.pipeline_apply(port, x, [CPU] * len(port))
+    else:
+        heads = pipeline.sequential_apply(port, x)
+    sum((h ** 2).sum() for h in heads.values()).backward()
+    # the preprocess feeds no stage: no gradient (JAX's is zero)
+    return {k: h.detach() for k, h in heads.items()}, {
+        k: torch.zeros_like(p) if p.grad is None else p.grad.clone()
+        for k, p in model.named_parameters()}
+
+
+def test_pipeline_apply_heads_match_jax(stages):
+    n, model, port, mbs, want, want_seq, _ = stages
+    got, _ = _port_run(model, port, mbs, "pipeline")
+    seq, _ = _port_run(model, port, mbs, "sequential")
+    assert got.keys() == want.keys() == want_seq.keys()
+    for name, _, _ in HOURGLASS_TERMINALS:
+        head = got[name]
+        assert want[name].shape == want_seq[name].shape == (
+            n, MICRO, MB, 8, 8, head.shape[3])
+        assert head.shape[:3] == (n, MICRO, MB)
+        assert torch.equal(head, seq[name]), name
+        _close(_nhwc(head), want[name], 1e-4,
+               name + " against pipeline_apply")
+        _close(_nhwc(head), want_seq[name], 1e-4,
+               name + " against sequential_apply")
+
+
+def test_pipeline_apply_gradients_match_jax(stages):
+    n, model, port, mbs, _, _, want = stages
+    _, got = _port_run(model, port, mbs, "pipeline")
+    _, seq = _port_run(model, port, mbs, "sequential")
+    assert got.keys() <= want.keys()
+    for s in range(n):  # every stack's hourglass has a gradient
+        assert float(got["hourglassStack.{}.preserveCurrentDimension.0.conv1.weight"
+                         .format(s)].abs().sum()) > 0, s
+    for name, g in got.items():
+        assert torch.equal(g, seq[name]), name
+        _close(g.numpy(), want[name].numpy(), 1e-4, name)
+
+
+# -- the trainer's pipelined forward on the plain stacked hourglass ------------
+
 def _small_model(seed: int, dtype=torch.float32, geometry=None):
     geometry = geometry or HOURGLASS_SMALL
-    jax_model = _TinyStack() if geometry is TINY else \
+    jax_model = _JaxStack(stacks=2, **TINY) if geometry is TINY else \
         SmallCenterNetHourglass(stacks=2)
     params, stats = flax_variables(jax_model, seed,
                                    heads=HOURGLASS_HEAD_PATHS)
     model = CenterNetHourglass(stacks=2, **geometry)
-    sd = {}
-    convert._stacked(convert._Writer(sd, params, stats).sub(
-        "StackHourglass_0"), model)
-    model.load_state_dict(sd, strict=True)
+    model.load_state_dict(_port_stacked(params, stats, model), strict=True)
     return params, stats, model.to(dtype).train()
 
 

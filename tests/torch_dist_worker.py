@@ -10,8 +10,9 @@ job's settings and archive, loads the job's state dict if any, then
 either takes the job's steps (global host batches or global resident
 index vectors, with the global batch's draws) or runs
 ``begin_training`` (with ``stop_rank``, that rank asks to stop before
-the first step). Rank 0 records the losses and the final state in
-the plain layout (model-axis shards gathered). Ranks import no JAX.
+the first step). Rank 0 records the losses, the first step's
+gradients, the state after the first step and the final state, in the
+plain layout (model-axis shards gathered). Ranks import no JAX.
 """
 
 from __future__ import annotations
@@ -121,6 +122,10 @@ def _run_job(job, rank: int):
         if k == 0:
             out["grads"] = {k: g.clone() for k, g in full_gradients(
                 factory.model, factory.sharded, factory.mesh).items()}
+            first, _ = full_checkpoint_state(
+                factory.model, factory.optimizer, factory.sharded,
+                factory.mesh)
+            out["first_state"] = {k: v.clone() for k, v in first.items()}
     state, opt = full_checkpoint_state(factory.model, factory.optimizer,
                                        factory.sharded, factory.mesh)
     out["state"] = {k: v.clone() for k, v in state.items()}
