@@ -217,7 +217,12 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
    peak memory); (d) ``cornerCPoolRes10`` and ``centerOffsetRes10``
    served through ``make_device_analyzer(mesh=["cuda:0", "cuda:0"])``
    on the slide: 24 + 24 clips, the monolithic detections exactly, K2 8
-   launches a corner request, the latency printed;
+   launches a corner request, the latency printed; (e) the same two
+   models on slides of 6, 20 and 35 clips (``check_small_slides``): the
+   monolithic analyzer (a slide padded to a multiple of 24 clips) and
+   ``mesh=["cuda:0", "cuda:0"]`` give the same rows to the bit and the
+   same detections, the host-tiled path rows within ``compare_rows``'
+   bounds; each path's ms, and the unpadded forward's ms and rows;
 12. prints one ``{"kernels": [...]}`` line (each kernel's ``launches``
    from the newest path that runs it, named in ``main_path``, and its
    counts on every path; the render once, with its center set's numbers,
@@ -225,6 +230,10 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
    under ``map_sets``), the card's name and power limit, and as the
    last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
+
+``python3 chip_smoke.py --cards`` runs the parallel layer across four
+cards instead (``cards_main``: two and four NCCL ranks, the pipeline's
+stages on two cards, mesh serving over four).
 
 Any failed phase raises and the script exits non-zero without the last
 line. It exits non-zero at once when ``torch.cuda.is_available()`` is
@@ -235,6 +244,7 @@ from __future__ import annotations
 
 import copy
 import ctypes
+import faulthandler
 import io
 import json
 import math
@@ -281,13 +291,18 @@ from scd_resnet_tpu_torch.data.pipeline import (
 )
 from scd_resnet_tpu_torch.data.synthetic import make_archive
 from scd_resnet_tpu_torch.infer.analyse import (
+    BATCH_SIZE,
     CONTRACT_FIELDS,
+    _batch_axis,
+    _batched_rows,
+    analyse_grayscale,
     analyse_images,
     band_plan,
     make_device_analyzer,
     make_device_tiler,
     read_gray_u8,
     slide_geometry,
+    tile_slide,
 )
 from scd_resnet_tpu_torch.infer.server import create_server
 from scd_resnet_tpu_torch.infer.synthetic import seeded_model, synthetic_slide
@@ -295,7 +310,6 @@ from scd_resnet_tpu_torch.infer.wrapper import (
     load_traced,
     load_wrapper,
     make_wrapper,
-    make_wrapper_for,
 )
 from scd_resnet_tpu_torch.models.deformable import DCNPooling
 from scd_resnet_tpu_torch.models.hourglass import StackHourglass
@@ -311,6 +325,7 @@ from scd_resnet_tpu_torch.parallel.mesh import (
     TIMEOUT_S,
     full_gradients,
     init_distributed,
+    stage_devices,
 )
 from scd_resnet_tpu_torch.parallel.pipeline import (
     StackStage,
@@ -405,6 +420,72 @@ def time_ms(fn) -> float:
     Each call reads and writes 402 MB, far beyond the 50 MB L2, so every
     call meets a cold cache."""
     return device_ms(fn, 20, warmup=2)
+
+
+def sync(devices) -> None:
+    """Wait for every card among ``devices``."""
+    for device in {torch.device(d) for d in devices}:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+
+def card_overlap(fn, devices, rounds: int = 3):
+    """What the cards among ``devices`` did during one call of ``fn``, by
+    ``torch.profiler``: each card's busy ms (its kernels' and copies'
+    intervals merged) and the part of it in NCCL's kernels (which also
+    spin while they wait for a peer), the window from the first record to
+    the last, and the ms in which two or more of the cards
+    (``overlap_ms``) and all of them (``all_ms``) were busy at once. A trace with no record of some card
+    is taken again (CUPTI has returned empty rounds,
+    ``profile_kernels.device_kernels``), at most ``rounds`` times."""
+    cards = sorted({torch.cuda.current_device() if torch.device(d).index
+                    is None else torch.device(d).index for d in devices})
+    for _ in range(rounds):
+        sync(devices)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync(devices)
+        spans = {c: [] for c in cards}
+        nccl = {c: 0.0 for c in cards}
+        for evt in prof.events():
+            if (evt.device_type == torch.autograd.DeviceType.CUDA
+                    and evt.device_index in spans):
+                spans[evt.device_index].append((evt.time_range.start,
+                                                evt.time_range.end))
+                if "nccl" in evt.name.lower():
+                    nccl[evt.device_index] += evt.time_range.elapsed_us()
+        if all(spans.values()):
+            break
+    else:
+        raise AssertionError("the profiler recorded nothing on some of the "
+                             "cards {}".format(cards))
+    merged = {}
+    for card, intervals in spans.items():
+        out = []
+        for a, b in sorted(intervals):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        merged[card] = out
+    edges = sorted([(a, 1) for m in merged.values() for a, _ in m]
+                   + [(b, -1) for m in merged.values() for _, b in m])
+    overlap = every = 0.0
+    active, last = 0, edges[0][0]
+    for t, step in edges:
+        if active >= 2:
+            overlap += t - last
+        if active == len(cards):
+            every += t - last
+        active, last = active + step, t
+    return {"busy_ms": {"cuda:{}".format(c): sum(b - a for a, b in m) / 1e3
+                        for c, m in merged.items()},
+            "nccl_ms": {"cuda:{}".format(c): us / 1e3
+                        for c, us in nccl.items()},
+            "window_ms": (edges[-1][0] - edges[0][0]) / 1e3,
+            "overlap_ms": overlap / 1e3, "all_ms": every / 1e3}
 
 
 def check_corner_pool():
@@ -2357,7 +2438,7 @@ def check_psroi(gpu_line: str, device: str = "cuda"):
 MESH_TIMEOUT_S = 600  # one torchrun launch, start-up and every rank included
 # --cards: a launch of three jobs took 49.4 s on two cards (NVIDIA H100
 # 80GB HBM3, 700 W); a hung collective fails after 90 s
-CARDS_TIMEOUT_S, CARDS_COLLECTIVE_TIMEOUT_S = 240, 90
+CARDS, CARDS_TIMEOUT_S, CARDS_COLLECTIVE_TIMEOUT_S = 4, 240, 90
 STEP_SEED = 11  # the draws of phase 11's float32 steps
 PIPE_STEPS, TORCHRUN_STEPS, TIMED_STEPS = 10, 20, 10
 # one float32 exp74 step of two ranks on one card against one process:
@@ -2371,6 +2452,10 @@ PIPE_STEPS, TORCHRUN_STEPS, TIMED_STEPS = 10, 20, 10
 # prints that probe beside the meshes' differences
 STEP_LOSS_REL, STEP_GRAD_REL, STEP_STAT_RTOL, STEP_STAT_ATOL = \
     1e-4, 1e-2, 1e-4, 1e-5
+# the pipelined hourglass2's float32 gradients against another order of
+# the same sums (sequential_apply; the plain step, across cards), relative
+# over all parameters
+PIPE_GRAD_REL = 1e-5
 
 
 def step_draws(device, batch: int, size: int):
@@ -2404,49 +2489,66 @@ def one_step(values, device: str, nudge: float = 0.0):
                       if k.endswith(("running_mean", "running_var"))},
             "sharded": len(factory.sharded),
             "parameters": len(list(factory.model.parameters())),
+            "placement": {k: str(p.device)
+                          for k, p in factory.model.named_parameters()},
             "launches": dict(cuda_build.LAUNCHES)}
 
 
-def timed_steps(values, device: str, warm: int = 3, steps: int = TIMED_STEPS):
-    """ms a step of ``values`` (residency device) over ``steps`` steps
-    after ``warm``, host clock around steps ending in a synchronise."""
+def timed_steps(values, device: str, warm: int = 3, steps: int = TIMED_STEPS,
+                overlap: bool = False):
+    """``{"step_ms": ...}``: ms a step of ``values`` (residency device)
+    over ``steps`` steps after ``warm``, host clock around steps ending
+    in a synchronise of every card of the rank's stages. ``overlap``
+    adds one more step's ``card_overlap`` of those cards."""
     cfg = Configuration()
     cfg.update_config(dict(values, residency="device"))
     with training_backends(values.get("precision", "float32")):
         factory = NetworkFactory(cfg, device=device)
+        cards = factory.mesh.devices if factory.mesh else [factory.device]
         batch, epoch, feed = cfg.batchSize, 0, []
-        while len(feed) < warm + steps:
+        while len(feed) < warm + steps + 1:
             feed += list(factory.dataset.epoch_local_indices(
                 batch, epoch, num_shards=factory.mesh.size("data")
                 if factory.mesh else 1, local_train=factory._local_train))
             epoch += 1
         for idx in feed[:warm]:
             factory.train_resident(idx)
-        torch.cuda.synchronize()
+        sync(cards)
         t0 = time.perf_counter()
         for idx in feed[warm:warm + steps]:
             factory.train_resident(idx)
-        torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / steps
+        sync(cards)
+        out = {"step_ms": (time.perf_counter() - t0) * 1e3 / steps}
+        if overlap:
+            out["overlap"] = card_overlap(
+                lambda: factory.train_resident(feed[warm + steps]), cards)
+    return out
 
 
 def rank_job(spec_path: str) -> int:
-    """A ``torchrun`` rank of phase 11 (``chip_smoke.py --rank-job
-    spec.json``): joins the process group and runs the spec's jobs, a
-    float32 ``one_step`` or a run of the train entry point with its
-    launch counts, peak memory and a timed window; rank 0 writes each
-    job's result."""
+    """A ``torchrun`` rank of phase 11 and ``--cards`` (``chip_smoke.py
+    --rank-job spec.json``): joins the process group and runs the spec's
+    jobs, a float32 ``one_step``, a timed window, or a run of the train
+    entry point with its launch counts, peak memory and a timed window;
+    rank 0 writes each job's result. A job still running after the
+    collective timeout prints every thread's stack (a hung collective
+    raises on the rank that waits only after it), and so does a rank
+    that aborts (NCCL's watchdog ends a rank whose collective timed
+    out)."""
     with open(spec_path) as f:
         spec = json.load(f)
+    faulthandler.enable()
     rank, _, _ = init_distributed(spec["device"], spec["backend"],
                                   spec["timeout_s"])
     try:
         for job in spec["jobs"]:
+            print("[rank{}] job {}".format(rank, os.path.basename(
+                job["out"])), flush=True)
+            faulthandler.dump_traceback_later(spec["timeout_s"])
             if job["kind"] == "step":
                 result = one_step(job["values"], spec["device"])
             elif job["kind"] == "timed":
-                result = {"step_ms": timed_steps(job["values"],
-                                                 spec["device"])}
+                result = timed_steps(job["values"], spec["device"])
             else:
                 path = write_config(job["out"] + ".json", job["values"])
                 torch.cuda.reset_peak_memory_stats()
@@ -2456,9 +2558,10 @@ def rank_job(spec_path: str) -> int:
                 result = {"summary": summary,
                           "launches": dict(cuda_build.LAUNCHES),
                           "peak_memory_gb":
-                              torch.cuda.max_memory_allocated() / 1024 ** 3,
-                          "step_ms": timed_steps(job["values"],
-                                                 spec["device"])}
+                              torch.cuda.max_memory_allocated() / 1024 ** 3}
+                result.update(timed_steps(job["values"], spec["device"],
+                                          overlap=job.get("overlap", False)))
+            faulthandler.cancel_dump_traceback_later()
             if rank == 0:
                 torch.save(result, job["out"])
     finally:
@@ -2617,26 +2720,64 @@ def check_torchrun(data_dir: str, work: str, n_val: int):
             train["launches"], two[0]["launches"])
 
 
-def check_pipeline(data_dir: str, work: str, n_val: int):
-    """11 (c): hourglass2_best with ``meshShape [1, 2]`` (data x pipe),
-    both stages on cuda:0, batch 32: one float32 step with one
-    microbatch equal to the plain step to the bit; four microbatches
-    against ``sequential_apply`` (heads to the bit, gradients within
-    1e-5); then 10 bf16 steps through the train entry point."""
+def check_pipeline(data_dir: str, work: str, n_val: int,
+                   device: str = "cuda:0"):
+    """11 (c), and ``--cards`` with ``device="cuda"``: hourglass2_best
+    with ``meshShape [1, 2]`` (data x pipe), batch 32, its stages on
+    ``stage_devices(device, 2, 0)`` (both on cuda:0, or cuda:0 and
+    cuda:1): one float32 step with one microbatch against the plain step
+    on cuda:0, equal to the bit on one card; four microbatches against
+    ``sequential_apply`` (heads to the bit, gradients within
+    ``PIPE_GRAD_REL``); then 10 bf16 steps through the train entry point
+    (K1 exact), a timed window, each card's peak memory and, across
+    cards, one step's ``card_overlap``.
+
+    Across cards the one-microbatch step's forward (loss, BatchNorm
+    statistics) must still equal the plain step's to the bit, and its
+    gradients lie within ``PIPE_GRAD_REL``: autograd runs each card's
+    part of the backward on that card's own thread, so a tensor read by
+    stage 0's heads and by the stage-1 path sums its gradients in the
+    order they arrive, not in the single thread's order. It prints how
+    many gradient tensors of each card's stage differ and whether a
+    second run repeats the first to the bit."""
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     pipe = {"meshShape": [1, 2], "meshAxes": ["data", "pipe"]}
+    cards = sorted({str(d) for d in stage_devices(device, 2, 0)})
+    where = " and ".join(cards)
     values = settings(HOURGLASS2_BEST, data_dir, os.path.join(work, "step"),
                       precision="float32", residency="host")
-    plain = one_step(values, "cuda")
-    piped = one_step(dict(values, pipelineMicrobatches=1, **pipe), "cuda:0")
-    m1 = compare_steps(piped, plain, "hourglass2_best, data x pipe [1, 2], "
-                       "1 microbatch, float32 step", exact=True)
+    plain = one_step(values, "cuda:0")
+    m1_values = dict(values, pipelineMicrobatches=1, **pipe)
+    piped = one_step(m1_values, device)
+    what = "hourglass2_best, data x pipe [1, 2] on {}, 1 microbatch, " \
+        "float32 step".format(where)
+    m1 = compare_steps(piped, plain, what, exact=len(cards) == 1,
+                       bounded=False)
+    if len(cards) > 1:
+        again = one_step(m1_values, device)
+        m1["repeats_to_the_bit"] = all(
+            torch.equal(again["grads"][k], g)
+            for k, g in piped["grads"].items())
+        m1["differing_gradients"] = {card: [0, 0] for card in cards}
+        for name, card in piped["placement"].items():
+            m1["differing_gradients"][card][1] += 1
+            if not torch.equal(piped["grads"][name], plain["grads"][name]):
+                m1["differing_gradients"][card][0] += 1
+        log("{}: gradient tensors differing from the plain step's, of each "
+            "card's stage: {}; a second run repeats the first to the bit: "
+            "{}".format(what, m1["differing_gradients"],
+                        m1["repeats_to_the_bit"]))
+        if not (piped["loss"] == plain["loss"] and all(
+                torch.equal(piped["stats"][k], v)
+                for k, v in plain["stats"].items())
+                and m1["grad_rel"] <= PIPE_GRAD_REL):
+            raise AssertionError("{}: beyond its bounds: {}".format(what, m1))
     # four microbatches against the sequential loop, on one batch
     cfg = Configuration()
     cfg.update_config(dict(values, pipelineMicrobatches=4, **pipe))
     with training_backends("float32"):
-        factory = NetworkFactory(cfg, device="cuda:0")
+        factory = NetworkFactory(cfg, device=device)
         model, devices = factory.model, factory.mesh.devices
         batch = cfg.batchSize
         samples, locs, counts = next(factory.dataset.epoch_batches(batch, 0))
@@ -2658,40 +2799,46 @@ def check_pipeline(data_dir: str, work: str, n_val: int):
             runs[name] = ({k: v.detach() for k, v in heads.items()},
                           {n: p.grad.clone() for n, p in
                            model.named_parameters()})
-        torch.cuda.synchronize()
+        sync(devices)
     (h_p, g_p), (h_s, g_s) = runs["pipeline"], runs["sequential"]
     num = math.sqrt(sum(float((g_p[k].double() - g.double()).pow(2).sum())
                         for k, g in g_s.items()))
     den = math.sqrt(sum(float(g.double().pow(2).sum()) for g in g_s.values()))
     heads_equal = all(torch.equal(h_p[k], h_s[k]) for k in h_s)
-    log("hourglass2_best, 4 microbatches of 8 on cuda:0: heads {} to "
+    log("hourglass2_best, 4 microbatches of 8 on {}: heads {} to "
         "sequential_apply's, gradients rel {:.2e}".format(
-            "bit-equal" if heads_equal else "NOT equal", num / den))
-    if not (heads_equal and num / den <= 1e-5):
+            where, "bit-equal" if heads_equal else "NOT equal", num / den))
+    if not (heads_equal and num / den <= PIPE_GRAD_REL):
         raise AssertionError("the pipeline differs from sequential_apply")
     del factory, model, runs
     # 10 bf16 steps through the train entry point
     run_values = settings(HOURGLASS2_BEST, data_dir, os.path.join(work, "run"),
                           iterations=PIPE_STEPS, validation=PIPE_STEPS,
                           snapshot=PIPE_STEPS, pipelineMicrobatches=4, **pipe)
-    torch.cuda.reset_peak_memory_stats()
+    for card in cards:
+        torch.cuda.reset_peak_memory_stats(card)
     cuda_build.reset_launches()
     summary = train_cli.main([write_config(os.path.join(work, "run.json"),
-                                           run_values), "--device", "cuda:0"])
+                                           run_values), "--device", device])
     launches = dict(cuda_build.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated() / 1024 ** 3
+    peak = {card: torch.cuda.max_memory_allocated(card) / 1024 ** 3
+            for card in cards}
     expected = expected_launches(run_values, PIPE_STEPS, n_val, runs=1)
     if launches != expected:
         raise AssertionError("the pipelined hourglass2 launched {}, expected "
                              "{}".format(launches, expected))
-    step_ms = timed_steps(run_values, "cuda:0")
-    log("hourglass2_best, data x pipe [1, 2] on cuda:0, 4 microbatches, {} "
+    timed = timed_steps(run_values, device, overlap=len(cards) > 1)
+    log("hourglass2_best, data x pipe [1, 2] on {}, 4 microbatches, {} "
         "bf16 steps: {:.2f} ms a step ({} timed after 3), {:.1f} clips/s "
-        "over the run with its validation, peak memory {:.2f} GB; launches "
-        "{} (expected)".format(PIPE_STEPS, step_ms, TIMED_STEPS,
-                               summary["clips_per_s"], peak, launches))
-    return ({"m1_step": m1, "m4_grad_rel": num / den, "step_ms": step_ms,
-             "clips_per_s": summary["clips_per_s"], "peak_memory_gb": peak},
+        "over the run with its validation, peak memory {} GB; launches "
+        "{} (expected){}".format(
+            where, PIPE_STEPS, timed["step_ms"], TIMED_STEPS,
+            summary["clips_per_s"],
+            {card: round(gb, 2) for card, gb in peak.items()}, launches,
+            "; one step's cards: {}".format(timed["overlap"])
+            if "overlap" in timed else ""))
+    return (dict(timed, m1_step=m1, m4_grad_rel=num / den,
+                 clips_per_s=summary["clips_per_s"], peak_memory_gb=peak),
             launches)
 
 
@@ -2730,30 +2877,238 @@ def check_mesh_serving(slide, build_dir):
     return out, corner_launches
 
 
+# 11 (e): slides of 6, 20 and 35 clips (width, height): under the batch of
+# 24, and above it by a number that no batch or shard of 24 divides
+SMALL_SLIDES = ((1024, 768), (2048, 1536), (2560, 1792))
+
+
+def rows_of(inflight, n_clips: int, axis: int) -> torch.Tensor:
+    """The host rows of an analyzer's ``dispatch`` (a mesh's shards
+    concatenated and cut to the slide's clips)."""
+    rows = inflight[0]
+    if isinstance(rows, list):
+        rows = torch.cat([r.cpu() for r in rows], axis).narrow(axis, 0,
+                                                              n_clips)
+    return rows.cpu()
+
+
+def check_small_slides(build_dir, device: str = "cuda:0",
+                       archs=("cornerCPoolRes10", "centerOffsetRes10")):
+    """11 (e): ``cornerCPoolRes10`` and ``centerOffsetRes10`` (the served
+    checkpoints) on the ``SMALL_SLIDES``: the monolithic analyzer's rows
+    (the slide padded to a multiple of 24 clips) equal to the bit to
+    those of ``mesh=["cuda:0", "cuda:0"]`` (each shard padded alike) and
+    its detections equal; the host-tiled ``analyse_grayscale`` (fixed
+    batch of 24; the host standardises its clips within 1e-4 of the
+    card's) within ``compare_rows``' bounds of them. Each path's ms a
+    request (after one request), and for a clip count off a multiple of
+    24 the forward's ms padded and unpadded and the largest difference
+    of the unpadded rows from the padded ones. Every comparison is made
+    and printed before a failed one raises."""
+    out, failed = {}, []
+    device = torch.device(device)
+    for arch in archs:
+        wrapper = load_wrapper(os.path.join(build_dir, arch + ".pt"), arch,
+                               device)
+        family, axis = wrapper.contract, _batch_axis(wrapper.contract)
+        for width, height in SMALL_SLIDES:
+            slide = synthetic_slide(height, width, seed=width + height)
+            clip_h, clip_v = slide_geometry(width, height)[:2]
+            n = clip_h * clip_v
+            name = "{} {}x{} ({} clips)".format(arch, width, height, n)
+            res = {"clips": n}
+            rows, found = {}, {}
+            for path, analyse in (
+                    ("monolithic", make_device_analyzer(wrapper, width,
+                                                        height)),
+                    ("mesh", make_device_analyzer(
+                        wrapper, width, height, mesh=[device, device]))):
+                analyse(slide)  # first request: cuDNN's algorithm choice
+                sync([device])
+                t0 = time.perf_counter()
+                inflight = analyse.dispatch(slide)
+                found[path] = analyse.finish(inflight)
+                res[path + "_ms"] = (time.perf_counter() - t0) * 1e3
+                rows[path] = rows_of(inflight, n, axis)
+            gray = slide.astype(np.float32)
+            t0 = time.perf_counter()
+            found["host"] = analyse_grayscale(wrapper, gray,
+                                              batch_size=BATCH_SIZE,
+                                              bounds="slide")
+            res["host_ms"] = (time.perf_counter() - t0) * 1e3
+            with torch.inference_mode():
+                rows["host"] = torch.from_numpy(np.concatenate(
+                    _batched_rows(wrapper, tile_slide(gray)[0], BATCH_SIZE,
+                                  axis), axis))
+            res["detections"] = {k: len(v) for k, v in found.items()}
+            res["mesh_rows_equal"] = torch.equal(rows["mesh"],
+                                                 rows["monolithic"])
+            res["mesh_detections_equal"] = found["mesh"] == found["monolithic"]
+            res["host_detections_equal"] = found["host"] == found["monolithic"]
+            res["host_positions_equal"] = [d[:2] for d in found["host"]] == \
+                [d[:2] for d in found["monolithic"]]
+            res["host_rows_max_abs"] = float(
+                (rows["host"].double() - rows["monolithic"].double())
+                .abs().max())
+            try:
+                res["host_rows_checked"] = compare_rows(
+                    family, rows["monolithic"], rows["host"])
+            except AssertionError as err:
+                res["host_rows_checked"] = str(err)
+                failed.append("{}: host-tiled rows: {}".format(name, err))
+            if not (res["mesh_rows_equal"] and res["mesh_detections_equal"]
+                    and found["monolithic"]):
+                failed.append("{}: the mesh's rows or detections differ "
+                              "from the monolithic ones".format(name))
+            if n % BATCH_SIZE:
+                with torch.inference_mode():
+                    clips = make_device_tiler(width, height, device)(
+                        torch.from_numpy(slide).to(device))
+                    padded = torch.cat([clips, clips.new_zeros(
+                        (-n % BATCH_SIZE, *clips.shape[1:]))])
+                    for key, batch in (("padded", padded),
+                                       ("unpadded", clips)):
+                        wrapper(batch)
+                        sync([device])
+                        t0 = time.perf_counter()
+                        got = wrapper(batch)
+                        sync([device])
+                        res[key + "_forward_ms"] = \
+                            (time.perf_counter() - t0) * 1e3
+                        if key == "unpadded":
+                            diff = (got.double() - rows["monolithic"].to(
+                                device).double()).abs().max()
+                            res["unpadded_rows_max_abs"] = float(diff)
+            log("{}: {}".format(name, json.dumps(res)))
+            out[name] = res
+    if failed:
+        raise AssertionError("\n".join(failed))
+    return out
+
+
+def served_checkpoints(slide, build_dir):
+    """``cornerCPoolRes10`` and ``centerOffsetRes10`` with the seeded
+    weights phase 6 serves (seeds 10 and 11 on ``slide``), written as
+    ``build_dir/{arch}.pt``."""
+    clips = make_device_tiler(slide.shape[1], slide.shape[0],
+                              torch.device("cuda:0"))(
+        torch.from_numpy(slide).to("cuda:0"))
+    for arch, seed in (("cornerCPoolRes10", 10), ("centerOffsetRes10", 11)):
+        save_checkpoint(os.path.join(build_dir, arch + ".pt"), arch,
+                        seeded_model(arch, seed, clips).state_dict())
+
+
+def cards_steps(ranks: int, shapes, data_dir: str, work: str, single):
+    """exp74 on ``ranks`` NCCL ranks, a card each: a float32 step on each
+    mesh of ``shapes`` against the single-process step within the
+    ``STEP_*`` bounds, then 4 bf16 steps of the train entry point on
+    ``[ranks]`` (a validation at step 4, its rows gathered, and a
+    snapshot) and its timed window at the global batch of 32."""
+    jobs = [{"kind": "step", "values": dict(
+        single["values"], meshShape=shape, dirTemp=os.path.join(
+            work, "{}x{}/".format(ranks, k))),
+        "out": os.path.join(work, "step_{}x{}.pt".format(ranks, k))}
+        for k, shape in enumerate(shapes)]
+    jobs.append({"kind": "train", "values": dict(settings(
+        EXP74, data_dir, os.path.join(work, "train{}".format(ranks)),
+        iterations=4, validation=4, snapshot=4), meshShape=[ranks]),
+        "out": os.path.join(work, "train{}.pt".format(ranks)),
+        "overlap": True})
+    got = torchrun(ranks, "cuda", "nccl", jobs, work,
+                   timeout_s=CARDS_TIMEOUT_S,
+                   collective_timeout_s=CARDS_COLLECTIVE_TIMEOUT_S)
+    steps = {}
+    for shape, result in zip(shapes, got):
+        name = "meshShape {} on {} cards (NCCL)".format(shape, ranks)
+        steps[name] = compare_steps(result, single["result"],
+                                    "exp74, " + name + ", float32 step")
+        steps[name]["sharded"] = result["sharded"]
+    train = got[-1]
+    if train["summary"]["last_iteration"] != 4:
+        raise AssertionError("the train entry point on {} ranks stopped at "
+                             "{}".format(ranks, train["summary"]))
+    log("exp74, train entry point on meshShape [{}]: {}; peak memory "
+        "{:.2f} GB on rank 0; {:.2f} ms a bf16 step at the global batch of "
+        "32; rank 0's card in one step: {}".format(
+            ranks, train["summary"], train["peak_memory_gb"],
+            train["step_ms"], train["overlap"]))
+    return steps, train
+
+
+def cards_serving(slide, build_dir, cards: int):
+    """``cornerCPoolRes10`` and ``centerOffsetRes10`` over a mesh of
+    ``cards`` cards: the detections of the monolithic analyzer on cuda:0,
+    K2 ``pool_launches_per_forward`` a walk and a shard, one card's and
+    the mesh's ms a request (each after one request), and one mesh
+    request's ``card_overlap``."""
+    devices = ["cuda:{}".format(i) for i in range(cards)]
+    out = {}
+    for arch in ("cornerCPoolRes10", "centerOffsetRes10"):
+        wrapper = load_wrapper(os.path.join(build_dir, arch + ".pt"), arch)
+        times = {}
+        for name, analyse in (
+                ("1 card", make_device_analyzer(wrapper, SLIDE_W, SLIDE_H)),
+                ("{} cards".format(cards), make_device_analyzer(
+                    wrapper, SLIDE_W, SLIDE_H, mesh=devices))):
+            want = analyse(slide)  # first call: cuDNN's algorithm choice
+            sync(devices)
+            cuda_build.reset_launches()
+            t0 = time.perf_counter()
+            got = analyse(slide)
+            times[name] = (time.perf_counter() - t0) * 1e3
+            launches = dict(cuda_build.LAUNCHES)
+            if name == "1 card":
+                mono = got
+            elif not mono or got != mono or want != mono:
+                raise AssertionError("{}: detections over {} ({}) differ "
+                                     "from the monolithic ones ({})".format(
+                                         arch, devices, len(got), len(mono)))
+            else:
+                only(launches, {k: cards * pool_launches_per_forward(arch)
+                                for k in cp.KERNEL_NAMES.values()})
+                overlap = card_overlap(lambda: analyse(slide), devices)
+        log("{} over mesh {}: {} detections, equal to the monolithic "
+            "analyzer's; ms a request {}; K2 {} launches; one request's "
+            "cards: {}".format(arch, devices, len(mono), times,
+                               k2_launches(launches), overlap))
+        out[arch] = {"detections": len(mono), "ms": times,
+                     "k2_launches": k2_launches(launches),
+                     "overlap": overlap}
+    return out
+
+
 def cards_main() -> int:
-    """``chip_smoke.py --cards``: the parallel layer across two or more
-    cards, one rank a card on NCCL (the collectives' all-gather path).
-    exp74's float32 step on ``meshShape [2]`` and ``[1, 2]`` (data x
-    model) against the single-process step within the ``STEP_*``
-    bounds; 4 bf16 steps of the train entry point on the data mesh (a
-    validation, the rows gathered), then bf16 exp74 steps timed at the
-    global batch of 32 on one card and on the mesh (residency device, 10
-    steps after 3); ``cornerCPoolRes10`` and ``centerOffsetRes10``
-    served over a mesh of every card, detections equal to the monolithic
-    analyzer's on cuda:0. Prints a results line, the card line and the
-    last line of ``main``. Four ranks are left out: on four cards the
-    train entry point's ``[4]`` run hung after the ``[4]`` and ``[2,
-    2]`` float32 steps had passed (NVIDIA H100 80GB HBM3, 700 W)."""
-    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
-        print("chip_smoke --cards: needs two or more CUDA cards",
+    """``chip_smoke.py --cards``: the parallel layer across four cards, one
+    NCCL rank a card (the collectives' all-gather path). Every collective
+    of a launch, on every process group, fails after
+    ``CARDS_COLLECTIVE_TIMEOUT_S``; a rank job still running then prints
+    every thread's stack.
+
+    1. two ranks: exp74's float32 step on ``meshShape [2]`` and ``[1,
+       2]`` (data x model) against the single-process step within the
+       ``STEP_*`` bounds; 4 bf16 steps of the train entry point on
+       ``[2]`` (a validation at step 4, the rows gathered, and a
+       snapshot), then its timed window (10 steps after 3);
+    2. four ranks: the same on ``[4]`` and ``[2, 2]``, and the train
+       entry point on ``[4]``; bf16 exp74 at the global batch of 32 is
+       timed on one card, ``[2]`` and ``[4]``;
+    3. ``cornerCPoolRes10`` and ``centerOffsetRes10`` served over a mesh
+       of the four cards (``cards_serving``);
+    4. hourglass2_best pipelined, ``meshShape [1, 2]`` data x pipe with
+       its stages on cuda:0 and cuda:1 (``check_pipeline``).
+
+    Prints a results line, the card line and the last line of ``main``
+    (with the count of cards)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < CARDS:
+        print("chip_smoke --cards: needs {} CUDA cards".format(CARDS),
               file=sys.stderr)
         return 1
-    cards = torch.cuda.device_count()
     os.environ.setdefault("NCCL_DEBUG", "WARN")  # the ranks' NCCL warnings
     gpu_line = run(["nvidia-smi", "--query-gpu=name,power.limit",
                     "--format=csv,noheader"])
-    log("cards: {}\n{}".format(cards, gpu_line))
+    log("cards: {}\n{}".format(torch.cuda.device_count(), gpu_line))
     reproducible_float32()
+    t_start = time.perf_counter()
     build_dir = os.path.join(REPO, "build", "chip_smoke_cards")
     data_dir = os.path.join(build_dir, "data")
     work = os.path.join(build_dir, "torchrun")
@@ -2773,59 +3128,43 @@ def cards_main() -> int:
             writer.wait()
     step_values = settings(EXP74, data_dir, os.path.join(work, "single"),
                            precision="float32", residency="host")
-    timed_values = settings(EXP74, data_dir, os.path.join(work, "timed"))
-    single = one_step(step_values, "cuda")
-    out = {"cards": cards, "card": gpu_line, "steps": {},
-           "step_ms": {"1 card": timed_steps(timed_values, "cuda")}}
-
-    shapes = [[2], [1, 2]]
-    jobs = [{"kind": "step", "values": dict(
-        step_values, meshShape=shape, dirTemp=os.path.join(
-            work, "{}/".format(k))),
-        "out": os.path.join(work, "step_{}.pt".format(k))}
-        for k, shape in enumerate(shapes)]
-    jobs.append({"kind": "train", "values": dict(settings(
-        EXP74, data_dir, os.path.join(work, "train"), iterations=4,
-        validation=4, snapshot=4), meshShape=[2]),
-        "out": os.path.join(work, "train.pt")})
-    got = torchrun(2, "cuda", "nccl", jobs, work, timeout_s=CARDS_TIMEOUT_S,
-                   collective_timeout_s=CARDS_COLLECTIVE_TIMEOUT_S)
-    for shape, result in zip(shapes, got):
-        name = "meshShape {} on 2 cards (NCCL)".format(shape)
-        out["steps"][name] = compare_steps(
-            result, single, "exp74, " + name + ", float32 step")
-        out["steps"][name]["sharded"] = result["sharded"]
-    out["step_ms"]["meshShape [2]"] = got[-1]["step_ms"]
-    log("exp74 bf16 step, global batch 32: {} ms".format(out["step_ms"]))
-    slide = synthetic_slide(SLIDE_H, SLIDE_W, seed=2056)
-    devices = ["cuda:{}".format(i) for i in range(cards)]
-    out["mesh_serving"] = {}
-    for arch, seed in (("cornerCPoolRes10", 10), ("centerOffsetRes10", 11)):
-        clips = make_device_tiler(SLIDE_W, SLIDE_H, torch.device("cuda:0"))(
-            torch.from_numpy(slide).to("cuda:0"))
-        wrapper = make_wrapper_for(get_model_profile(arch), seeded_model(
-            arch, seed, clips).state_dict(), "cuda:0")
-        want = make_device_analyzer(wrapper, SLIDE_W, SLIDE_H)(slide)
-        mesh = make_device_analyzer(wrapper, SLIDE_W, SLIDE_H, mesh=devices)
-        mesh(slide)  # first call: cuDNN's algorithm choice on each card
-        for device in devices:
-            torch.cuda.synchronize(device)
+    single = {"values": step_values,
+              "result": one_step(step_values, "cuda")}
+    with open(os.path.join(data_dir, "scdx16p100.split.json")) as f:
+        n_val = len(json.load(f)["validation"])
+    one_card = timed_steps(settings(EXP74, data_dir, os.path.join(
+        work, "timed")), "cuda", overlap=True)
+    log("exp74, one card: {:.2f} ms a bf16 step at the batch of 32; the "
+        "card in one step: {}".format(one_card["step_ms"],
+                                      one_card["overlap"]))
+    out = {"card": gpu_line, "steps": {}, "seconds": {},
+           "step_ms": {"1 card": one_card["step_ms"]},
+           "one_card_step": one_card["overlap"]}
+    for ranks, shapes in ((2, [[2], [1, 2]]), (4, [[4], [2, 2]])):
         t0 = time.perf_counter()
-        got = mesh(slide)
-        ms = (time.perf_counter() - t0) * 1e3
-        if not want or got != want:
-            raise AssertionError("{}: detections over {} ({}) differ from "
-                                 "the monolithic ones ({})".format(
-                                     arch, devices, len(got), len(want)))
-        log("{} over mesh {}: {} detections, equal to the monolithic "
-            "analyzer's; {:.1f} ms a request".format(arch, devices, len(got),
-                                                     ms))
-        out["mesh_serving"][arch] = {"detections": len(got), "ms": ms}
+        steps, train = cards_steps(ranks, shapes, data_dir, work, single)
+        out["steps"].update(steps)
+        out["step_ms"]["meshShape [{}]".format(ranks)] = train["step_ms"]
+        out["train_{}".format(ranks)] = {
+            k: train[k] for k in ("summary", "peak_memory_gb", "launches",
+                                  "overlap")}
+        out["seconds"]["{} ranks".format(ranks)] = time.perf_counter() - t0
+    log("exp74 bf16 step, global batch 32: {} ms".format(out["step_ms"]))
+    t0 = time.perf_counter()
+    slide = synthetic_slide(SLIDE_H, SLIDE_W, seed=2056)
+    served_checkpoints(slide, build_dir)
+    out["mesh_serving"] = cards_serving(slide, build_dir, CARDS)
+    out["seconds"]["mesh_serving"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["pipeline"], out["pipeline_launches"] = check_pipeline(
+        data_dir, os.path.join(build_dir, "pipeline"), n_val, device="cuda")
+    out["seconds"]["pipeline"] = time.perf_counter() - t0
+    out["seconds"]["total"] = time.perf_counter() - t_start
     log(json.dumps(out))
     log(gpu_line)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": cards}}))
+        "count": torch.cuda.device_count()}}))
     return 0
 
 
@@ -2970,7 +3309,9 @@ def main() -> int:
             data_dir, os.path.join(build_dir, "pipeline"), n_val)
         t0 = mark("pipeline", t0)
         mesh_served, mesh_counts = check_mesh_serving(slide, build_dir)
-        mark("mesh_serving", t0)
+        t0 = mark("mesh_serving", t0)
+        small = check_small_slides(build_dir)
+        mark("small_slides", t0)
 
         # 12. results: every path's counts, the serving paths (oldest first)
         # before the training paths (oldest first); each kernel's launches
@@ -3037,7 +3378,8 @@ def main() -> int:
                         "step_card_vs_cpu": steps, "preprocess": preprocessed,
                         "train_preprocessed": pre_trained, "psroi": psroi,
                         "torchrun": ranks, "pipeline": piped,
-                        "mesh_serving": mesh_served, "card": gpu_line,
+                        "mesh_serving": mesh_served, "small_slides": small,
+                        "card": gpu_line,
                         "seconds": phases}))
         log(json.dumps({"kernels": kernels}))
         log(gpu_line)

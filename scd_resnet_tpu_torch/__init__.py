@@ -14,6 +14,10 @@ scd_resnet_tpu_torch.train``, with ``-debug`` overlays and
 ``SCD_PROFILE_*`` traces), slides and their label files become training
 archives on the card (``python -m scd_resnet_tpu_torch.preprocess``),
 and every Pallas kernel of the JAX package is a hand-written CUDA kernel
-(``csrc/*.cu``). Not yet ported: data parallelism, the hourglass
-pipeline schedule and mesh serving.
+(``csrc/*.cu``). The parallel layer (``parallel/``) trains on a ``data``
+x ``model`` mesh of ``torchrun`` ranks (cross-replica BatchNorm, summed
+gradients, column-parallel wide kernels), pipelines the stacked
+hourglass's stacks over a rank's cards (``pipe``, GPipe microbatches),
+and shards a served slide's clips over cards (``serve --mesh``, ``test
+--mesh``).
 """

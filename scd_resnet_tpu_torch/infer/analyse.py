@@ -10,8 +10,10 @@ test.py:41-183). The device-fused serving path
   each clip is standardised from its exact integer moments
   (:func:`standardize_u8`), so that a clip's values do not depend on
   the batch it shares;
-- all clips of the slide run as one batch through the wrapper; only the
-  (rows, N, K) decode rows come back to the host;
+- all clips of the slide run as one batch through the wrapper, padded
+  with blank clips to a multiple of ``BATCH_SIZE`` (cuDNN's float32
+  forward sums in another order at other batches); only the (rows, N,
+  K) decode rows come back to the host;
 - the host thresholds at 0.3 after top-100, maps clip coordinates to
   slide pixels (``slide_x = clipX*384 - padLR + ctX*4 + offX``, toward-
   zero truncation), computes Rhr = (4 rad - 4 minL) / (2 * 4 minL), and
@@ -497,27 +499,34 @@ def make_device_analyzer(wrapper: Callable, width: int, height: int,
     before band i's rows are read back, so at most two bands (and their
     rows) are in flight; ``dispatch`` then returns the host rows of the
     whole slide, and ``many`` is a loop (several giant slides in flight is
-    what the mode bounds). A band of fewer than ``BATCH_SIZE`` clips runs
-    padded with blank clips to that batch, the host path's fixed batch:
-    on the H100 cuDNN's heuristics pick, below 24 float32 clips, other
-    algorithms for the heads' 3x3 convolutions, which sum in another
-    order and are slower (a forward of 12 ``cornerCPoolRes10`` clips
-    took 2374 ms where 24 took 257 ms, ``profile_serve.py``); from 24
-    clips on a clip's rows are those of the slide's batch of 48, so the
-    detections are the monolithic analyzer's.
+    what the mode bounds).
+
+    A slide, band or shard runs padded with blank clips to a multiple of
+    ``BATCH_SIZE``, the host path's fixed batch: on an NVIDIA H100 80GB
+    HBM3 (700 W) cuDNN's heuristics pick, for a float32 batch of 6, 12,
+    20 or 35 clips, other algorithms for the heads' 3x3 convolutions,
+    which sum in another order and are slower (``cornerCPoolRes10``: 12
+    clips took 2374 ms where 24 took 257 ms, ``profile_serve.py``; 6
+    clips 1772 ms, padded 258 ms; 35 clips 2304 ms, and rows other than
+    two padded shards', ``chip_smoke.py`` phase 11 (e)); in multiples of
+    24 a clip's rows are those of any other multiple, so a slide gets the
+    same detections whole, in bands, over a mesh and through the
+    host-tiled path.
 
     ``mesh``: a list of devices (the JAX analyzer's ``data`` mesh axis;
     ``serve --mesh`` and ``test --mesh`` pass every visible card). The
     slide is uploaded to and tiled on ``mesh[0]`` once; its clips are
     padded with blank clips to a multiple of the mesh's length and split
     in order, shard i copied to ``mesh[i]``; a distinct device gets its
-    own copy of the model; every shard's copy, forward and decode are
+    own copy of the model. Every shard's copy is queued before any
+    shard's forward: PyTorch runs a copy between cards on the source
+    card's stream, so a copy queued after shard 0's forward would wait
+    for it, and the shards would run in turn. Every forward and decode is
     queued before any rows are read back, then the rows are concatenated
-    and cut to the slide's clips. A shard of fewer than
-    ``BATCH_SIZE`` clips runs padded to that batch, as a short band does.
-    A device may be named more than once (two shards on one card). It
-    excludes streaming: a slide that ``max_resident_clips`` would stream
-    raises the JAX analyzer's error."""
+    and cut to the slide's clips. A device may be named more than once
+    (two shards on one card). It excludes streaming: a slide that
+    ``max_resident_clips`` would stream raises the JAX analyzer's
+    error."""
     device = wrapper.device
     contract = wrapper.contract
     clip_h, clip_v, pad_lr, pad_tb = slide_geometry(width, height)
@@ -543,12 +552,12 @@ def make_device_analyzer(wrapper: Callable, width: int, height: int,
         return src, src.to(dev, non_blocking=True)
 
     def padded_rows(model: Callable, clips: torch.Tensor) -> torch.Tensor:
-        """``model``'s rows of ``clips``, run padded with blank clips to
-        ``BATCH_SIZE`` when fewer."""
+        """``model``'s rows of ``clips``, run padded with blank clips to a
+        multiple of ``BATCH_SIZE``."""
         n = clips.shape[0]
-        if n < BATCH_SIZE:
+        if n % BATCH_SIZE:
             clips = torch.cat([clips, clips.new_zeros(
-                (BATCH_SIZE - n, *clips.shape[1:]))])
+                (-n % BATCH_SIZE, *clips.shape[1:]))])
         rows = model(clips)
         return rows[:n] if batch_axis == 0 else rows[:, :n]
 
@@ -608,9 +617,10 @@ def make_device_analyzer(wrapper: Callable, width: int, height: int,
                     if shard.shape[0] < per:  # blank clips to the shard size
                         shard = torch.cat([shard, shard.new_zeros(
                             (per - shard.shape[0], *shard.shape[1:]))])
-                    shards.append(padded_rows(
-                        copies[dev], shard.to(dev, non_blocking=True)))
-            return (shards, [host, gray_dev, clips])
+                    shards.append(shard.to(dev, non_blocking=True))
+                rows = [padded_rows(copies[dev], shard)
+                        for dev, shard in zip(devices, shards)]
+            return (rows, [host, gray_dev, clips])
 
     else:
         tiler = make_device_tiler(width, height, device)
@@ -618,7 +628,7 @@ def make_device_analyzer(wrapper: Callable, width: int, height: int,
         def dispatch(gray: np.ndarray):
             host, gray_u8 = upload(coerce_gray_u8(gray))
             with torch.inference_mode():
-                return wrapper(tiler(gray_u8)), host, gray_u8
+                return padded_rows(wrapper, tiler(gray_u8)), host, gray_u8
 
     if not streaming:
         def many(grays) -> List[List[List[float]]]:

@@ -59,8 +59,11 @@ def init_distributed(device: str | torch.device = "cuda",
 
     ``backend``: ``nccl`` by default on CUDA (each rank its own card),
     ``gloo`` on the CPU. Ranks that share one card must ask for ``gloo``:
-    NCCL refuses two ranks on one device. Every collective of the group
-    fails after ``timeout_s`` instead of waiting for a missing peer."""
+    NCCL refuses two ranks on one device. Every collective fails after
+    ``timeout_s`` instead of waiting for a missing peer: those of the
+    default group and those of every group the port makes from it (the
+    axis lines, :func:`host_group`), which take the same timeout; a
+    later call keeps the first call's group and timeout."""
     if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
         return 0, 1, 0
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
@@ -68,10 +71,41 @@ def init_distributed(device: str | torch.device = "cuda",
     if not dist.is_initialized():
         if backend is None:
             backend = "gloo" if torch.device(device).type == "cpu" else "nccl"
+        timeout = timedelta(seconds=timeout_s)
         dist.init_process_group(backend, init_method="env://", rank=rank,
-                                world_size=world,
-                                timeout=timedelta(seconds=timeout_s))
+                                world_size=world, timeout=timeout)
+        _reset_groups(timeout)
     return rank, world, local_rank
+
+
+# what the port made from the current default group: the axis lines by
+# (axis names, shape), the host group, and the timeout they all take
+_GROUPS: Dict[str, object] = {}
+
+
+def _reset_groups(timeout: timedelta) -> None:
+    _GROUPS.update(world=dist.group.WORLD, timeout=timeout, lines={},
+                   host=None)
+
+
+def _group_cache() -> Dict[str, object]:
+    """``_GROUPS`` of the current default group, emptied when that group
+    is not the one it was filled for (destroyed and started again, or
+    started by the caller: then with ``TIMEOUT_S``)."""
+    if not _GROUPS or _GROUPS["world"] is not dist.group.WORLD:
+        _reset_groups(timedelta(seconds=TIMEOUT_S))
+    return _GROUPS
+
+
+def host_group():
+    """A gloo group of every rank, for host tensors (the trainer's stop
+    flag: no wait on the card), made once per default group, with its
+    timeout."""
+    cache = _group_cache()
+    if cache["host"] is None:
+        cache["host"] = dist.new_group(backend="gloo",
+                                       timeout=cache["timeout"])
+    return cache["host"]
 
 
 class Mesh:
@@ -115,19 +149,28 @@ class Mesh:
 
 
 def _line_groups(axis_names, shape, rank: int) -> Dict[str, object]:
-    """Every process axis's lines as process groups (every rank creates
-    every group, in the same order); this rank's line of each axis."""
-    process = [a for a in axis_names if a in PROCESS_AXES]
-    sizes = [dict(zip(axis_names, shape))[a] for a in process]
-    ranks = np.arange(int(np.prod(sizes))).reshape(sizes)
-    mine = {}
-    for k, axis in enumerate(process):
-        lines = np.moveaxis(ranks, k, -1).reshape(-1, sizes[k])
-        for line in lines:
-            group = dist.new_group([int(r) for r in line])
-            if rank in line:
-                mine[axis] = group
-    return mine
+    """This rank's line of every process axis, as a process group with
+    the default group's timeout. The first mesh of an ``(axis_names, shape)``
+    makes every line's group (every rank makes every group, in the same
+    order, so the ranks must build their meshes in the same order); a
+    later mesh of the same axes and shape takes the same groups, so a
+    process that builds many trainers holds one set of communicators."""
+    cache = _group_cache()
+    key = (tuple(axis_names), tuple(shape))
+    if key not in cache["lines"]:
+        process = [a for a in axis_names if a in PROCESS_AXES]
+        sizes = [dict(zip(axis_names, shape))[a] for a in process]
+        ranks = np.arange(int(np.prod(sizes))).reshape(sizes)
+        mine = {}
+        for k, axis in enumerate(process):
+            lines = np.moveaxis(ranks, k, -1).reshape(-1, sizes[k])
+            for line in lines:
+                group = dist.new_group([int(r) for r in line],
+                                       timeout=cache["timeout"])
+                if rank in line:
+                    mine[axis] = group
+        cache["lines"][key] = mine
+    return cache["lines"][key]
 
 
 def create_mesh(axis_names: Sequence[str] = ("data",),

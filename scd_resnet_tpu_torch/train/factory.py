@@ -121,6 +121,7 @@ from scd_resnet_tpu_torch.parallel.collectives import (
 )
 from scd_resnet_tpu_torch.parallel.mesh import (
     full_checkpoint_state,
+    host_group,
     local_checkpoint_state,
     mesh_from_config,
     resolve_axes,
@@ -290,7 +291,9 @@ class NetworkFactory:
                 with open(cfg.dirDataSplitProfile) as f:
                     data_split = json.load(f)
             if self.world > 1:  # every rank has read it before rank 0
-                dist.barrier()  # writes it again
+                dist.barrier(  # writes it again
+                    device_ids=[self.device.index]
+                    if dist.get_backend() == dist.Backend.NCCL else None)
             dataset = SCDDataset(
                 cfg.dirDatafile, data_split,
                 argument_ratio=ds_profile.argument_ratio,
@@ -343,16 +346,16 @@ class NetworkFactory:
                             if mesh_shape else None)
         local_rank = int(os.environ.get("LOCAL_RANK", self.rank))
         pipe = dict(zip(axes, shape)).get("pipe", 1)
+        stages = stage_devices(device, pipe, local_rank)
+        if stages[0].type == "cuda":  # the card NCCL binds this rank to
+            torch.cuda.set_device(stages[0])
         self.mesh = mesh_from_config(
-            shape, axes, stage_devices(device, pipe, local_rank),
-            batch_size=cfg.batchSize, world_size=self.world, rank=self.rank)
+            shape, axes, stages, batch_size=cfg.batchSize,
+            world_size=self.world, rank=self.rank)
         self.device = self.mesh.devices[0]
         # the stop flag's group: gloo on host tensors, so the per-step
         # check waits for the other ranks' loops and not for the card
-        self._host_group = dist.new_group(backend="gloo") \
-            if self.world > 1 else None
-        if self.device.type == "cuda":
-            torch.cuda.set_device(self.device)
+        self._host_group = host_group() if self.world > 1 else None
         self.data_group = self.mesh.group("data")
         self._data_size = self.mesh.size("data")
         self._data_index = self.mesh.index("data")

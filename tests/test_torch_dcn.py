@@ -39,6 +39,7 @@ from scd_resnet_tpu.ops.pallas_kernels import dcn_gather_pallas
 from scd_resnet_tpu.train import registry as jax_registry
 from scd_resnet_tpu_torch.core import cuda_build
 from scd_resnet_tpu_torch.core.convert import state_dict_from_flax
+from scd_resnet_tpu_torch.infer import analyse
 from scd_resnet_tpu_torch.infer.analyse import SCORE_THRESHOLD, make_device_tiler
 from scd_resnet_tpu_torch.infer.server import InferenceService
 from scd_resnet_tpu_torch.infer.synthetic import seeded_model, synthetic_slide
@@ -518,7 +519,7 @@ def _heat_heads(model):
 
 @pytest.mark.parametrize("arch", ["cornerRes10", "cornerCombinedRes10",
                                   "centerOffsetRes10dcn"])
-def test_seeded_serving_weights_for_every_family(arch):
+def test_seeded_serving_weights_for_every_family(arch, monkeypatch):
     """``seeded_model`` finds the heat heads in the built model (the
     corner families' heads are named apart from cornerCPool's), calibrates
     every heat channel (the combined model's one head has three) so that
@@ -527,6 +528,10 @@ def test_seeded_serving_weights_for_every_family(arch):
     slide = synthetic_slide(512, 512, seed=16)
     clips = make_device_tiler(512, 512, torch.device("cpu"))(
         torch.from_numpy(slide))
+    # the slide's 1 clip(s) as one batch of 1: the analyzer pads a
+    # slide of fewer than BATCH_SIZE clips to that batch, which on the CPU
+    # only adds blank clips' forwards (test_torch_mesh_serving.py holds it)
+    monkeypatch.setattr(analyse, "BATCH_SIZE", 1)
     model = seeded_model(arch, 17, clips)
     heads = _heat_heads(model)
     assert heads

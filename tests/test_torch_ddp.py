@@ -19,7 +19,9 @@ environment ``torchrun`` sets) runs every multi-rank job of the module:
 - ``writes``: ``begin_training`` with a directory a rank, to show that
   rank 1 writes nothing;
 - ``stop``: rank 1 asks to stop before the first step; both ranks stop
-  after it, at the same boundary, and rank 0 saves the state.
+  after it, at the same boundary, and rank 0 saves the state;
+- ``reuse``: a second trainer of ``meshShape [2]`` in the same process
+  takes the process groups the first one's mesh made, and makes none.
 
 Tolerances, each with its reason:
 
@@ -210,6 +212,9 @@ def runs(tmp_path_factory):
         {"name": "stop", "settings": _settings(root / "stop", iterations=4,
                                                snapshot=4),
          "archive": path, "begin_training": True, "stop_rank": 1},
+        {"name": "reuse", "settings": _settings(root / "reuse",
+                                                meshShape=[2]),
+         "archive": path, "again": True},
     ]
     ranks = run_ranks(2, jobs, str(root / "ranks"))
     return {"root": root, "path": path, "state": state, "ranks": ranks,
@@ -313,6 +318,13 @@ def test_a_stop_on_one_rank_stops_every_rank(runs):
     evals = (runs["root"] / "stop" / "results" / "evals.ddp.txt").read_text()
     assert "Preempted at iteration 1" in evals
     assert any((runs["root"] / "stop" / "temp").iterdir())
+
+
+def test_a_second_trainer_takes_the_first_ones_groups(runs):
+    """One set of line groups and one host group a process, however many
+    trainers it builds: no new communicators, no groups left behind."""
+    assert runs["ranks"]["reuse"]["again"] == {
+        "groups_made": 0, "same_data_group": True, "same_host_group": True}
 
 
 def _free_port():

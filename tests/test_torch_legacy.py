@@ -49,6 +49,7 @@ from scd_resnet_tpu_torch.data.pipeline import (
     identity_draws,
 )
 from scd_resnet_tpu_torch.data.synthetic import make_archive
+from scd_resnet_tpu_torch.infer import analyse
 from scd_resnet_tpu_torch.infer.analyse import (
     CONTRACT_FIELDS,
     dedupe_contract,
@@ -445,7 +446,7 @@ def test_stitch_legacy_boxes_and_dedupe_match_jax():
     assert len(dedupe_contract(got, 16.0, "cornerLegacy")) < len(got)
 
 
-def test_legacy_wrapper_contract_and_a_served_slide():
+def test_legacy_wrapper_contract_and_a_served_slide(monkeypatch):
     torch.manual_seed(0)
     model = CornerNetLegacy(stacks=2, **HOURGLASS_SMALL)
     wrapper = make_wrapper(model, "cornerLegacy")
@@ -458,6 +459,10 @@ def test_legacy_wrapper_contract_and_a_served_slide():
         final = model(clips)[-1]
     assert torch.equal(rows, legacy.decode_corner_net_legacy(final))
     slide = np.random.default_rng(0).integers(0, 255, (600, 700), np.uint8)
+    # the slide's 4 clip(s) as one batch of 4: the analyzer pads a
+    # slide of fewer than BATCH_SIZE clips to that batch, which on the CPU
+    # only adds blank clips' forwards (test_torch_mesh_serving.py holds it)
+    monkeypatch.setattr(analyse, "BATCH_SIZE", 4)
     service = InferenceService(wrapper, dedupe_radius=8.0)
     detections = service.analyse_gray(slide)
     for det in detections:

@@ -4,13 +4,16 @@ the tensor-parallel sharding rule, parameter for parameter through the
 converter's key map, on the conftest's eight virtual CPU devices; and
 the dataset's resident shards (``device_shards``,
 ``steps_per_epoch_resident``, ``epoch_local_indices``) against the JAX
-dataset's.
+dataset's. Besides, the collective timeout of the groups the port makes
+(two gloo ranks, ``torch_dist_worker.run_ranks``).
 
 The port lays the ``data`` and ``model`` axes over ``torchrun`` ranks
 and the ``pipe`` axis over a rank's devices, so a JAX mesh over N
 devices is a port mesh of ``world_size`` ranks of ``len(devices)``
 devices each, N = world_size x len(devices) (every case states both).
 """
+
+import time
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +30,7 @@ from scd_resnet_tpu_torch.data.synthetic import make_archive
 from scd_resnet_tpu_torch.parallel import mesh as port_mesh
 from scd_resnet_tpu_torch.train.registry import get_model_profile
 
+from torch_dist_worker import run_ranks
 from torch_port_common import jax_center_model
 
 # (meshShape, meshAxes, batchSize, ranks, devices a rank); the JAX side
@@ -177,3 +181,24 @@ def test_resident_shards_match_jax(archive, shards, batch):
                                             epoch, skip))
         assert len(got) == steps - skip
         assert [g.tolist() for g in got] == [w.tolist() for w in want]
+
+
+GROUP_TIMEOUT_S = 5.0  # the launch's collective timeout, every group's
+
+
+def test_a_skipped_all_reduce_raises_within_the_group_timeout(tmp_path):
+    """Two gloo ranks, mesh ``[2]``, whose default group was started with
+    a timeout of ``GROUP_TIMEOUT_S``: rank 1 leaves out one all-reduce on
+    its data line and stays up, so rank 0's wait on that group ends by
+    the timeout the group was made with (gloo's own default is 30 min,
+    beyond the launch's wall limit). The slack covers the wait's own
+    start and the error's unwinding."""
+    t0 = time.perf_counter()
+    got = run_ranks(2, [{"name": "skip", "kind": "skip", "skip_rank": 1}],
+                    str(tmp_path), collective_timeout_s=GROUP_TIMEOUT_S,
+                    timeout_s=30)["skip"]
+    assert got["raised"], got
+    assert "timed out" in got["raised"].lower() or \
+        "timeout" in got["raised"].lower(), got["raised"]
+    assert GROUP_TIMEOUT_S - 0.5 <= got["seconds"] <= GROUP_TIMEOUT_S + 2.0
+    assert time.perf_counter() - t0 < 30

@@ -12,6 +12,12 @@ shards a slide's clips over a list of devices (the JAX analyzer's
   4 shards: the padding to a multiple of the mesh, the padding of each
   shard to 24, the order of the shards and the cut to the slide's clips
   are exact, with dedupe, ``many`` and ``dispatch``/``finish``;
+- a slide of fewer than 24 clips reaches the monolithic analyzer's
+  wrapper as one batch of 24, as each mesh shard does, with the mesh's
+  detections, and a slide off a multiple of the batch as the next
+  multiple; and the mesh queues every shard's copy to its device
+  before the first shard's forward (on the card a copy between cards
+  waits for the source card's queue);
 - the refusals: streaming with a mesh (the JAX analyzer's error), and
   the CLIs' ``--mesh`` errors.
 """
@@ -103,6 +109,66 @@ def test_mesh_shards_pad_and_cut_exactly(shards):
     assert model.batches == [analyse.BATCH_SIZE] * shards  # 15 clips
     assert mesh.many(iter([gray, other])) == [want, want_other]
     assert mesh.finish(mesh.dispatch(other)) == want_other
+
+
+@pytest.mark.parametrize("width,height,batch,seen,shards", [
+    (1024, 768, 24, [24], [24, 24]),
+    (1700, 900, 4, [16], [8, 8]),
+], ids=["6_clips", "15_clips_batch_4"])
+def test_a_slide_runs_padded_to_a_multiple_of_the_batch(width, height,
+                                                        batch, seen, shards,
+                                                        monkeypatch):
+    """A 1024x768 slide (3 x 2 clips): the monolithic analyzer's wrapper
+    sees one batch of ``BATCH_SIZE`` (24), as each shard of a mesh of
+    two does; a 1700x900 slide (5 x 3 clips) with the batch at 4, one
+    batch of 16, and shards of 8. Mesh and monolithic detections are
+    equal."""
+    monkeypatch.setattr(analyse, "BATCH_SIZE", batch)
+    gray = np.round(np.random.default_rng(6).uniform(
+        0.0, 255.0, (height, width))).astype(np.uint8)
+    model = PixelRows()
+    mono = analyse.make_device_analyzer(model, width, height,
+                                        dedupe_radius=16.0)
+    want = mono(gray)
+    assert len(want) > 0
+    assert model.batches == seen
+    mesh = analyse.make_device_analyzer(model, width, height,
+                                        dedupe_radius=16.0,
+                                        mesh=["cpu", "cpu"])
+    model.batches.clear()
+    assert mesh(gray) == want
+    assert model.batches == shards
+
+
+def test_mesh_queues_every_copy_before_the_first_forward(monkeypatch):
+    """Over ``["cpu", "cpu"]`` (15 clips, 8 a shard): both shards' copies
+    to their devices come before the first forward, in the order the
+    calls reach ``Tensor.to`` and the wrapper."""
+    events = []
+
+    class Recording(PixelRows):
+        def __call__(self, clips):
+            events.append(("forward", clips.shape[0]))
+            return super().__call__(clips)
+
+    gray = np.round(np.random.default_rng(5).uniform(
+        0.0, 255.0, (900, 1700))).astype(np.uint8)
+    mesh = analyse.make_device_analyzer(Recording(), 1700, 900,
+                                        mesh=["cpu", "cpu"])
+    to = torch.Tensor.to
+
+    def recording_to(self, *args, **kwargs):
+        if isinstance(args[0] if args else kwargs.get("device"),
+                      (str, torch.device)):
+            events.append(("copy", self.shape[0]))
+        return to(self, *args, **kwargs)
+
+    monkeypatch.setattr(torch.Tensor, "to", recording_to)
+    rows = mesh.dispatch(gray)
+    monkeypatch.undo()
+    assert events == [("copy", 8), ("copy", 8), ("forward", 24),
+                      ("forward", 24)]
+    assert len(mesh.finish(rows)) > 0
 
 
 def test_mesh_refuses_streaming():

@@ -147,6 +147,10 @@ SERVE_BLOCKED = BLOCK + textwrap.dedent("""
     wrapper = make_wrapper(get_model_profile("cornerCPoolRes10").build(),
                            "corner")
     slide = np.random.default_rng(0).integers(0, 255, (512, 512), np.uint8)
+    # the slide's one clip as a batch of one: padded to BATCH_SIZE, the
+    # CPU would run 23 blank clips' full-width forwards
+    from scd_resnet_tpu_torch.infer import analyse
+    analyse.BATCH_SIZE = 1
     detections = InferenceService(wrapper).analyse_gray(slide)
     assert msgpack.unpackb(b"\\x81\\xa1a\\x01") == {"a": 1}
 

@@ -14,7 +14,10 @@ Tolerances, each with its reason:
   number, order and place, Rhr within 1e-4 absolute plus 1e-3 relative
   (``tests/test_torch_slice.py`` gives the reason);
 - streamed against monolithic, ``many`` against one slide at a time, a
-  JAX checkpoint against flax's reader: exactly equal.
+  JAX checkpoint against flax's reader: exactly equal;
+- a slide of fewer clips than the batch, run padded to it by the device
+  analyzer, against the host path and JAX's: as the host path against
+  JAX's (the device tiler standardises within 1e-4 of the host's).
 
 The streaming tests use a wrapper whose rows are a function of a few
 pixels of each clip, so that any pixel or ordering fault changes the
@@ -212,6 +215,54 @@ def test_host_path_matches_jax(center_weights):
     np.testing.assert_array_equal(np.isfinite(got_rhr), finite)
     np.testing.assert_allclose(got_rhr[finite], ref_rhr[finite], rtol=1e-3,
                                atol=1e-4)
+
+
+class RecordingWrapper:
+    """A wrapper that records the size of every batch it runs."""
+
+    def __init__(self, inner):
+        self.inner, self.batches = inner, []
+        self.contract, self.device = inner.contract, inner.device
+
+    def __call__(self, clips):
+        self.batches.append(clips.shape[0])
+        return self.inner(clips)
+
+
+def _assert_detections_close(got, ref):
+    """Same number, order and positions; Rhr within 1e-4 + 1e-3 rel."""
+    assert len(got) == len(ref) >= 40
+    assert [d[:2] for d in got] == [d[:2] for d in ref]
+    got_rhr, ref_rhr = np.array([d[2] for d in got]), np.array(
+        [d[2] for d in ref])
+    finite = np.isfinite(ref_rhr)
+    np.testing.assert_array_equal(np.isfinite(got_rhr), finite)
+    np.testing.assert_allclose(got_rhr[finite], ref_rhr[finite], rtol=1e-3,
+                               atol=1e-4)
+
+
+def test_small_slide_runs_padded_like_the_host_path_and_jax(center_weights,
+                                                           monkeypatch):
+    """The 700x600 slide's 4 clips, with the batch at 6 (24 quarter-width
+    clip forwards a path would cost the CPU tens of seconds): the device
+    analyzer's wrapper sees one batch of 6, and its detections are the
+    host path's and JAX's host path's at the same batch."""
+    monkeypatch.setattr(analyse, "BATCH_SIZE", 6)
+    params, stats = center_weights
+    gray = SLIDE.astype(np.float32)
+    wrapper = RecordingWrapper(make_wrapper(
+        port_model("centerOffset", params, stats), "centerOffset"))
+    got = analyse.make_device_analyzer(wrapper, 700, 600)(SLIDE)
+    assert wrapper.batches == [6]
+    host = analyse.analyse_grayscale(wrapper, gray, batch_size=6,
+                                     bounds="slide")
+    jax_wrapper = jax.jit(jax_make_wrapper(FAMILIES["centerOffset"][0](),
+                                           params, stats))
+    ref = jax_analyse.analyse_grayscale(lambda b: jax_wrapper(b), gray,
+                                        batch_size=6, bounds="slide",
+                                        contract="centerOffset")
+    _assert_detections_close(got, host)
+    _assert_detections_close(got, ref)
 
 
 # -- the JAX trainer's checkpoints ------------------------------------------

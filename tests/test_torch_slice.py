@@ -24,12 +24,22 @@ from scd_resnet_tpu.infer.analyse import fit_rhr as jax_fit_rhr
 from scd_resnet_tpu.infer.server import InferenceService as JaxService
 from scd_resnet_tpu.infer.wrapper import make_wrapper as jax_make_wrapper
 from scd_resnet_tpu_torch.core import cuda_build
+from scd_resnet_tpu_torch.infer import analyse
 from scd_resnet_tpu_torch.infer.analyse import fit_rhr, rhr_histogram
 from scd_resnet_tpu_torch.infer.server import InferenceService
 from scd_resnet_tpu_torch.infer.synthetic import synthetic_slide
 from scd_resnet_tpu_torch.infer.wrapper import make_wrapper
 
 SLIDE = synthetic_slide(600, 700, seed=21)
+
+
+@pytest.fixture(autouse=True)
+def slide_batch(monkeypatch):
+    """The slide's 4 clips run as one batch of 4: the analyzer pads a
+    slide of fewer than ``BATCH_SIZE`` clips to that batch, which on the
+    CPU only adds blank clips' forwards (``test_torch_mesh_serving.py``
+    holds the padding)."""
+    monkeypatch.setattr(analyse, "BATCH_SIZE", 4)
 
 
 def _clips():

@@ -12,7 +12,13 @@ index vectors, with the global batch's draws) or runs
 ``begin_training`` (with ``stop_rank``, that rank asks to stop before
 the first step). Rank 0 records the losses, the first step's
 gradients, the state after the first step and the final state, in the
-plain layout (model-axis shards gathered). Ranks import no JAX.
+plain layout (model-axis shards gathered). With ``again``, each rank
+then builds a second factory of the same settings and rank 0 records
+whether it took the first one's process groups and how many groups it
+made. A job of ``"kind": "skip"`` instead runs one all-reduce on the
+data line of a mesh ``[world]``, which rank ``skip_rank`` leaves out:
+rank 0 records what its wait raised and after how long, and the
+skipping rank stays up until then. Ranks import no JAX.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import os
 import socket
 import subprocess
 import sys
+import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 240  # every rank of a launch, start-up included
@@ -33,14 +40,17 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def run_ranks(world: int, jobs, work: str):
-    """Run ``jobs`` on ``world`` gloo ranks; rank 0's results by job
-    name. A rank that fails or outlives ``TIMEOUT_S`` fails the call."""
+def run_ranks(world: int, jobs, work: str,
+              collective_timeout_s: float = COLLECTIVE_TIMEOUT_S,
+              timeout_s: float = TIMEOUT_S):
+    """Run ``jobs`` on ``world`` gloo ranks whose collectives fail after
+    ``collective_timeout_s``; rank 0's results by job name. A rank that
+    fails or outlives ``timeout_s`` fails the call."""
     import torch
 
     os.makedirs(work, exist_ok=True)
     spec = os.path.join(work, "jobs.pt")
-    torch.save(jobs, spec)
+    torch.save({"jobs": jobs, "timeout_s": collective_timeout_s}, spec)
     env = dict(os.environ, WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
                MASTER_PORT=str(free_port()), OMP_NUM_THREADS="1",
                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
@@ -52,10 +62,12 @@ def run_ranks(world: int, jobs, work: str):
             env=dict(env, RANK=str(rank), LOCAL_RANK=str(rank)),
             stdout=log, stderr=subprocess.STDOUT), log))
     failed = []
+    deadline = time.monotonic() + timeout_s
     try:
         for rank, (proc, log) in enumerate(procs):
             try:
-                if proc.wait(timeout=TIMEOUT_S) != 0:
+                if proc.wait(timeout=max(deadline - time.monotonic(),
+                                         0.1)) != 0:
                     failed.append(rank)
             except subprocess.TimeoutExpired:
                 failed.append(rank)
@@ -73,6 +85,37 @@ def run_ranks(world: int, jobs, work: str):
         raise RuntimeError("ranks {} failed:\n{}".format(failed,
                                                          "\n".join(tails)))
     return torch.load(os.path.join(work, "results.pt"), weights_only=False)
+
+
+def _skip_all_reduce(job, rank: int, work: str):
+    """One all-reduce on the data line of a mesh ``[world]`` (this
+    rank's group of ``create_mesh``), left out by ``job["skip_rank"]``;
+    that rank waits until rank 0 has written ``skip.done`` (at most a
+    minute), so rank 0's wait ends by the group's timeout and not by a
+    peer that left."""
+    import torch
+    import torch.distributed as dist
+
+    from scd_resnet_tpu_torch.parallel.collectives import reduce_sum_
+    from scd_resnet_tpu_torch.parallel.mesh import create_mesh
+
+    group = create_mesh(("data",), (dist.get_world_size(),)).group("data")
+    done = os.path.join(work, "skip.done")
+    if rank == job["skip_rank"]:
+        deadline = time.monotonic() + 60
+        while not os.path.exists(done) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        return {}
+    t0 = time.perf_counter()
+    try:
+        reduce_sum_(torch.ones(1), group)
+        raised = None
+    except RuntimeError as err:
+        raised = str(err)
+    out = {"raised": raised, "seconds": time.perf_counter() - t0}
+    with open(done, "w"):
+        pass
+    return out
 
 
 def _run_job(job, rank: int):
@@ -106,6 +149,20 @@ def _run_job(job, rank: int):
         factory.model.load_state_dict(state)
     out = {"losses": [], "sharded": dict(factory.sharded),
            "resident": factory.resident}
+    if job.get("again"):
+        import torch.distributed as dist
+
+        new_group, made = dist.new_group, []
+        dist.new_group = lambda *a, **k: made.append(1) or new_group(*a, **k)
+        try:
+            again = NetworkFactory(cfg, dataset=dataset, device="cpu")
+        finally:
+            dist.new_group = new_group
+        out["again"] = {"groups_made": len(made),
+                        "same_data_group": again.data_group is not None
+                        and again.data_group is factory.data_group,
+                        "same_host_group": again._host_group is not None
+                        and again._host_group is factory._host_group}
     if job.get("begin_training"):
         if job.get("stop_rank") == rank:
             factory.request_stop()
@@ -140,10 +197,12 @@ def main(spec: str, work: str) -> None:
 
     from scd_resnet_tpu_torch.parallel.mesh import init_distributed
 
-    rank, _, _ = init_distributed("cpu", timeout_s=COLLECTIVE_TIMEOUT_S)
+    spec = torch.load(spec, weights_only=False)
+    rank, _, _ = init_distributed("cpu", timeout_s=spec["timeout_s"])
     torch.set_num_threads(1)
-    results = {job["name"]: _run_job(job, rank)
-               for job in torch.load(spec, weights_only=False)}
+    results = {job["name"]: _skip_all_reduce(job, rank, work)
+               if job.get("kind") == "skip" else _run_job(job, rank)
+               for job in spec["jobs"]}
     if rank == 0:
         torch.save(results, os.path.join(work, "results.pt"))
     torch.distributed.destroy_process_group()
