@@ -10,8 +10,8 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
 1. prints the toolchain and the card (``nvidia-smi`` name and power
    limit), builds every kernel source (``csrc/*.cu``, one ``nvcc`` each,
    all started together) and starts writing the seeded synthetic 512x512
-   training archive in a subprocess (cached under ``build/``) and phase
-   10's slides in another;
+   training archive in a subprocess (cached under ``build/``), phase
+   10's slides in another and phase 12's (its gen stage) in a third;
 2. holds the corner-pool kernel (``csrc/corner_pool.cu``) against its
    plain PyTorch version on the card in all four directions at the
    served shape (48, 128, 128, 128) float32, on random and on tie-heavy
@@ -223,7 +223,25 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
    ``mesh=["cuda:0", "cuda:0"]`` give the same rows to the bit and the
    same detections, the host-tiled path rows within ``compare_rows``'
    bounds; each path's ms, and the unpadded forward's ms and rows;
-12. prints one ``{"kernels": [...]}`` line (each kernel's ``launches``
+12. runs the north-star F1 pipeline (``python -m
+   scd_resnet_tpu_torch.tools.f1_pipeline``) at a reduced scale through
+   the port's CLIs, each stage its own process on the card: 2 train
+   slides x 40 objects and 6 held-out slides x 10 (1200x800, seeds 100
+   and 5000; the gen stage runs from phase 1 on), preprocessed with -s
+   512, ``centerOffsetRes10`` at full width trained for 200 iterations
+   (batch 32, bf16), served live
+   (``test -c --pipelined --fit``) and traced (``trace`` + ``test
+   -m``), scored. Every stage must exit 0, traced and live must be at
+   least 99.5 % identical, the train stage's process (its counts start
+   at 0; it reports them in its summary) must launch K1 exactly once a
+   step and a validation pre-render chunk and K5 once a step and
+   nothing else, and its ``StepProfiler`` trace must name both kernels.
+   It prints P/R/F1 at every dedupe radius and each stage's seconds.
+   Then ``python -m scd_resnet_tpu_torch.serve`` on the snapshot and
+   ``python -m scd_resnet_tpu_torch.tools.loadtest`` against it: 6
+   requests of a held-out slide, 3 at a time, no server error; p50, p90
+   and clips/s printed;
+13. prints one ``{"kernels": [...]}`` line (each kernel's ``launches``
    from the newest path that runs it, named in ``main_path``, and its
    counts on every path; the render once, with its center set's numbers,
    and every map set's numbers and launches on the path that runs it
@@ -345,6 +363,7 @@ from scd_resnet_tpu_torch.profile_train import (
     SYNTHETIC_ARCHIVE,
     settings,
 )
+from scd_resnet_tpu_torch.tools import f1_pipeline
 from scd_resnet_tpu_torch.train import __main__ as train_cli
 from scd_resnet_tpu_torch.train.factory import NetworkFactory, parse_metric_line
 from scd_resnet_tpu_torch.train.registry import get_model_profile
@@ -390,6 +409,14 @@ PRE_SLIDES, PRE_OBJECTS, PRE_SEED = 2, 24, 3092
 PRE_MARGIN = "244 252 248 252"
 PRE_STEPS, PRE_VALIDATE_EVERY, PRE_PROFILE = 20, 10, (12, 2)
 PRE_TRACE_KERNELS = ("render_heatmaps_kernel", "max_pool_bwd_kernel")
+# phase 12: the F1 pipeline (tools/f1_pipeline) cut to F1_TRAIN_SLIDES
+# train and F1_TEST_SLIDES held-out slides and F1_ITERS iterations, its
+# train stage traced over F1_PROFILE = (first step, steps); then
+# F1_REQUESTS /analyse requests to the serving daemon, F1_CONCURRENCY at a
+# time (tools/loadtest)
+F1_TRAIN_SLIDES, F1_TEST_SLIDES, F1_ITERS = 2, 6, 200
+F1_PROFILE = (150, 2)
+F1_REQUESTS, F1_CONCURRENCY = 6, 3
 # DCNPooling on the card: x (batch, output_dim group^2, size, size), rois
 PSROI = {"batch": 2, "output_dim": 8, "group": 7, "pooled": 7, "size": 128,
          "rois": 256, "samples": 4}
@@ -2986,6 +3013,189 @@ def check_small_slides(build_dir, device: str = "cuda:0",
     return out
 
 
+# -- 12. the F1 pipeline through the port's CLIs, and the load test -------------
+
+def log_tail(path: str, chars: int = 6000) -> str:
+    with open(path) as f:
+        return f.read()[-chars:]
+
+
+def f1_pipeline_cmd(work: str, stage: str, device: str = "cuda"):
+    """One stage of phase 12's cut of ``tools/f1_pipeline``."""
+    return [sys.executable, "-m", "scd_resnet_tpu_torch.tools.f1_pipeline",
+            "--root", os.path.join(work, "f1_smoke"), "--stage", stage,
+            "--device", device, "--train-slides", str(F1_TRAIN_SLIDES),
+            "--test-slides", str(F1_TEST_SLIDES), "--iters", str(F1_ITERS)]
+
+
+def start_f1_gen(work: str):
+    """Phase 12's gen stage (slides and label files, on the host) in a
+    subprocess, started in phase 1 beside the other writers."""
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    with open(os.path.join(work, "gen.log"), "w") as out:
+        return subprocess.Popen(f1_pipeline_cmd(work, "gen"), cwd=REPO,
+                                stdout=out, stderr=subprocess.STDOUT)
+
+
+def check_f1_pipeline(work: str, gen, device: str = "cuda"):
+    """Phase 12: ``python -m scd_resnet_tpu_torch.tools.f1_pipeline`` at
+    the reduced scale, its gen stage started in phase 1 (``gen``, from
+    :func:`start_f1_gen`) and each later stage an invocation of its own,
+    every stage a port CLI in its own process on ``device``, with a
+    ``StepProfiler`` window over the train stage. The train stage's
+    process starts with every count at 0 and reports its counts in its
+    summary (``stages.json``), which must be exactly K1 once a step and a
+    validation pre-render chunk and K5 once a step, and nothing else;
+    its trace must name both kernels. Returns the phase's record and
+    those counts."""
+    root = os.path.join(work, "f1_smoke")
+    trace_dir = os.path.join(work, "trace")
+    start, steps = F1_PROFILE
+    env = dict(os.environ, SCD_PROFILE_DIR=trace_dir,
+               SCD_PROFILE_START=str(start), SCD_PROFILE_STEPS=str(steps))
+    log("F1 pipeline cuts: {} train slides x 40 objects (seed 100), {} "
+        "held-out x 10 (seed 5000), {} iterations (the full run: 16, 60, "
+        "3000)".format(F1_TRAIN_SLIDES, F1_TEST_SLIDES, F1_ITERS))
+    t0 = time.perf_counter()
+    if gen.wait(timeout=900) != 0:
+        raise AssertionError("the F1 pipeline's gen stage exited {}:\n{}"
+                             .format(gen.returncode, log_tail(os.path.join(
+                                 work, "gen.log"))))
+    if device == "cuda":  # the stages' processes share this card
+        torch.cuda.empty_cache()
+    for stage in ("preprocess", "train", "serve", "eval"):
+        log_path = os.path.join(work, stage + ".log")
+        with open(log_path, "w") as out:
+            code = subprocess.run(f1_pipeline_cmd(work, stage, device),
+                                  cwd=REPO, env=env, stdout=out,
+                                  stderr=subprocess.STDOUT,
+                                  timeout=900).returncode
+        if code != 0:
+            raise AssertionError("the F1 pipeline's {} stage exited {}; its "
+                                 "log ends:\n{}".format(stage, code,
+                                                        log_tail(log_path)))
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(root, "stages.json")) as f:
+        stages = json.load(f)
+    with open(os.path.join(root, "report.json")) as f:
+        report = json.load(f)
+    with open(os.path.join(root, "f1.json")) as f:
+        values = json.load(f)
+    with open(os.path.join(root, "data", "scdx16p100.split.json")) as f:
+        n_val = len(json.load(f)["validation"])
+    train = stages["train"]["summary"]
+    expected = expected_launches(values, F1_ITERS, n_val, runs=1)
+    launches = {name: train["launches"].get(name, 0) for name in expected}
+    extra = {name: count for name, count in train["launches"].items()
+             if name not in expected and count}
+    traces = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, traces[0])) as f:
+        trace_names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    trace_kernels = {kernel: sorted(n for n in trace_names if kernel in n)
+                     for kernel in PRE_TRACE_KERNELS}
+    stage_seconds = {stage: stages[stage]["seconds"]
+                     for stage in f1_pipeline.STAGES}
+    for row in report["table"]:
+        log("F1 dedupe {dedupe:g} px, {path}: TP {tp} FP {fp} FN {fn} "
+            "P {precision} R {recall} F1 {f1}".format(**row))
+    log("F1 pipeline in {:.1f} s after gen: stages {} s (serve: {}); "
+        "traced against live {:.3%} identical, max Rhr deviation {}; train "
+        "{} steps, {:.1f} clips/s; {} validation clips; trace {} with {}; "
+        "launches {} (expected {})".format(
+            seconds, stage_seconds, stages["serve"]["commands_seconds"],
+            report["equality_rate"], report["max_rhr_deviation"],
+            train["steps"], train["clips_per_s"], n_val, traces,
+            trace_kernels, launches, expected))
+    if report["equality_rate"] < f1_pipeline.EQUALITY_MIN:
+        raise AssertionError("traced and live agree on {:.3%} of detections"
+                             .format(report["equality_rate"]))
+    if train["steps"] != F1_ITERS:
+        raise AssertionError("the train stage ran {} steps".format(
+            train["steps"]))
+    if traces != ["trace.{}-{}.json".format(start, start + steps - 1)] or \
+            not all(trace_kernels.values()):
+        raise AssertionError("trace {} lacks a kernel: {}".format(
+            traces, trace_kernels))
+    if launches != expected or extra:
+        raise AssertionError("the F1 train stage launched {} (and {}), "
+                             "expected {}".format(launches, extra, expected))
+    load = check_loadtest(root, work, device)
+    return {"seconds": seconds, "stages_seconds": stage_seconds,
+            "serve_commands_seconds": stages["serve"]["commands_seconds"],
+            "preprocess": stages["preprocess"]["summary"],
+            "train": {k: train[k] for k in ("steps", "seconds",
+                                            "clips_per_s")},
+            "validation_clips": n_val, "report": report,
+            "trace_kernels": trace_kernels, "loadtest": load}, launches
+
+
+def check_loadtest(root: str, work: str, device: str = "cuda"):
+    """``python -m scd_resnet_tpu_torch.serve`` on the F1 pipeline's
+    snapshot (warmed up at the held-out slides' size), then ``python -m
+    scd_resnet_tpu_torch.tools.loadtest`` against it with held-out slide
+    1: F1_REQUESTS requests, F1_CONCURRENCY at a time, no server error.
+    The daemon is stopped whatever happens."""
+    args = f1_pipeline.parse_args(["--root", root, "--iters", str(F1_ITERS)])
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    url = "http://127.0.0.1:{}".format(port)
+    width, height = f1_pipeline.SLIDE_SIZE
+    t0 = time.perf_counter()
+    with open(os.path.join(work, "serve.log"), "w") as out:
+        daemon = subprocess.Popen(
+            [sys.executable, "-m", "scd_resnet_tpu_torch.serve", "-c",
+             f1_pipeline.snapshot_path(args), "-a", args.arch, "--device",
+             device, "--port", str(port), "--warmup",
+             "{}x{}".format(width, height)],
+            cwd=REPO, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            while True:
+                if daemon.poll() is not None:
+                    raise AssertionError("the daemon exited {}:\n{}".format(
+                        daemon.returncode,
+                        log_tail(os.path.join(work, "serve.log"))))
+                try:
+                    with urllib.request.urlopen(url + "/healthz",
+                                                timeout=5) as resp:
+                        resp.read()
+                    break
+                except OSError:
+                    if time.perf_counter() - t0 > 300:
+                        raise
+                    time.sleep(0.5)
+            ready = time.perf_counter() - t0
+            proc = subprocess.run(
+                [sys.executable, "-m", "scd_resnet_tpu_torch.tools.loadtest",
+                 "--url", url, "--image",
+                 os.path.join(root, "test_imgs", "1.png"),
+                 "--requests", str(F1_REQUESTS),
+                 "--concurrency", str(F1_CONCURRENCY)],
+                cwd=REPO, capture_output=True, text=True, timeout=600)
+        finally:
+            daemon.terminate()
+            try:
+                daemon.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                daemon.kill()
+                daemon.wait()
+    if proc.returncode != 0:
+        raise AssertionError("loadtest failed ({}):\n{}".format(
+            proc.returncode, proc.stderr[-4000:]))
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    log("loadtest on the F1 snapshot ({}x{} PNG, {} requests, {} at a time; "
+        "daemon ready in {:.1f} s): p50 {} ms, p90 {} ms, max {} ms, {} "
+        "clips/s, {} requests/s, server errors {}".format(
+            width, height, F1_REQUESTS, F1_CONCURRENCY, ready,
+            result["latency_p50_ms"], result["latency_p90_ms"],
+            result["latency_max_ms"], result["clips_per_second"],
+            result["requests_per_second"], result["server_errors"]))
+    if result["server_errors"] != 0 or result["requests"] != F1_REQUESTS:
+        raise AssertionError("loadtest: {}".format(result))
+    return dict(result, daemon_ready_seconds=ready)
+
+
 def served_checkpoints(slide, build_dir):
     """``cornerCPoolRes10`` and ``centerOffsetRes10`` with the seeded
     weights phase 6 serves (seeds 10 and 11 on ``slide``), written as
@@ -3189,6 +3399,7 @@ def main() -> int:
     writer = start_archive(archive)
     slide_dir = os.path.join(build_dir, "slides")
     slides_proc = start_slides(slide_dir)
+    f1_gen = start_f1_gen(os.path.join(build_dir, "f1"))
     try:
         phases = {}
 
@@ -3311,11 +3522,16 @@ def main() -> int:
         mesh_served, mesh_counts = check_mesh_serving(slide, build_dir)
         t0 = mark("mesh_serving", t0)
         small = check_small_slides(build_dir)
-        mark("small_slides", t0)
+        t0 = mark("small_slides", t0)
+        # 12. the F1 pipeline through the port's CLIs, and the load test
+        f1, f1_counts = check_f1_pipeline(os.path.join(build_dir, "f1"),
+                                          f1_gen)
+        mark("f1_pipeline", t0)
 
-        # 12. results: every path's counts, the serving paths (oldest first)
-        # before the training paths (oldest first); each kernel's launches
-        # are those of the newest path that runs it
+        # 13. results: every path's counts, the serving paths (oldest first)
+        # before the training paths (oldest first), then the F1 pipeline's
+        # train stage; each kernel's launches are those of the newest path
+        # that runs it
         paths = {"serve_cornerCPoolRes10": served[0]["launches"],
                  "serve_centerOffsetRes10dcn": served[2]["launches"],
                  "serve_cornerLegacyHourglass": served[4]["launches"],
@@ -3333,13 +3549,15 @@ def main() -> int:
                  "train_exp74_two_ranks": two_rank_counts,
                  "train_exp74_torchrun": torchrun_counts,
                  "train_hourglass2_pipe": pipe_counts,
-                 "serve_mesh_cornerCPoolRes10": mesh_counts}
+                 "serve_mesh_cornerCPoolRes10": mesh_counts,
+                 "f1_pipeline_train": {name: f1_counts.get(name, 0)
+                                       for name in cuda_build.LAUNCHES}}
         # the render's map sets by the paths that launch them: M = 1 center
         # (exp74, dcn_full, hourglass2_best, centersize_full, exp74 from the
         # preprocessed archive and under torchrun, the pipelined
-        # hourglass2), M = 3 (cpool_best), the offset set twice a batch
-        # transform (legacy_full)
-        for set_name, path in (("center", "train_hourglass2_pipe"),
+        # hourglass2, the F1 pipeline's train stage), M = 3 (cpool_best),
+        # the offset set twice a batch transform (legacy_full)
+        for set_name, path in (("center", "f1_pipeline_train"),
                                ("center+tl+br", "train_cpool_best"),
                                ("offset", "train_legacy_full")):
             render["map_sets"][set_name]["main_path"] = path
@@ -3379,6 +3597,7 @@ def main() -> int:
                         "train_preprocessed": pre_trained, "psroi": psroi,
                         "torchrun": ranks, "pipeline": piped,
                         "mesh_serving": mesh_served, "small_slides": small,
+                        "f1_pipeline": f1,
                         "card": gpu_line,
                         "seconds": phases}))
         log(json.dumps({"kernels": kernels}))
@@ -3388,9 +3607,10 @@ def main() -> int:
             "count": torch.cuda.device_count()}}))
         return 0
     finally:
-        if slides_proc.poll() is None:
-            slides_proc.kill()
-            slides_proc.wait()
+        for proc in (slides_proc, f1_gen):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 if __name__ == "__main__":

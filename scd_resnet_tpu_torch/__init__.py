@@ -19,5 +19,8 @@ x ``model`` mesh of ``torchrun`` ranks (cross-replica BatchNorm, summed
 gradients, column-parallel wide kernels), pipelines the stacked
 hourglass's stacks over a rank's cards (``pipe``, GPipe microbatches),
 and shards a served slide's clips over cards (``serve --mesh``, ``test
---mesh``).
+--mesh``). The root tools have their counterparts in ``tools/``: the
+north-star F1 pipeline through the port's CLIs, the F1 scorer, a
+checkpoint's [It] line, the reference exporter, the label tools on
+``data/labels.py`` and the serving daemon's load test.
 """

@@ -14,7 +14,10 @@ setting ``currentIter`` to a snapshot's iteration. cuDNN's settings follow
 the configuration's ``precision`` for the run and are restored after it
 (``core/device.training_backends``). ``-debug`` (or ``"debug": true`` in
 the configuration) writes overlay PNGs of the last trained batch to
-``dirResult/debug.{trainName}/`` at every validation boundary.
+``dirResult/debug.{trainName}/`` at every validation boundary. The last
+line of the standard output is the run's summary as one JSON object
+(``NetworkFactory.begin_training``: steps, seconds, clips/s, the last
+iteration and the kernel launches of the run).
 
 Started by ``torchrun``, each rank joins the process group
 (``parallel/mesh.init_distributed``: NCCL on cards, gloo on the CPU, or
@@ -28,6 +31,7 @@ pins every rank and pipeline stage to card N.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 from pprint import pprint
 from typing import Any, Dict, List, Optional
@@ -74,6 +78,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         summary = factory.begin_training(telemetry_path=os.path.join(
             config.dirResult, "telemetry.{}.jsonl".format(config.trainName)))
     Logger.info(":: train :: done: {}".format(summary))
+    if int(os.environ.get("RANK", "0")) == 0:
+        print(json.dumps(summary), flush=True)
     return summary
 
 

@@ -91,6 +91,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from scd_resnet_tpu_torch.core import cuda_build
 from scd_resnet_tpu_torch.core.checkpoint import (
     load_state_dict,
     load_training_checkpoint,
@@ -634,15 +635,20 @@ class NetworkFactory:
 
     # ---- the schedule loop ---------------------------------------------------
 
+    def validation_expression(self) -> str:
+        """The family's metric line over the whole validation set, in
+        batches of ``validationBatchSize`` (the [It] line's body)."""
+        return self.expression([
+            self.validate(item["xs"][0], item["ys"]) for item in
+            self.dataset.get_validation_set(
+                self.config.validationBatchSize,
+                corner_targets=self.profile.corner_targets)])
+
     def _validation_lines(self, it: int) -> Tuple[str, str]:
         tr_line = "[Tr] {}:     ".format(format(it, "7d")) + \
             self.expression([self.validate_train_batch()])
-        batches = [self.validate(item["xs"][0], item["ys"]) for item in
-                   self.dataset.get_validation_set(
-                       self.config.validationBatchSize,
-                       corner_targets=self.profile.corner_targets)]
         it_line = "[It] {}:     ".format(format(it, "7d")) + \
-            self.expression(batches)
+            self.validation_expression()
         return tr_line, it_line
 
     def begin_training(self, telemetry_path: Optional[str] = None
@@ -650,8 +656,9 @@ class NetworkFactory:
         """Run the schedule from ``currentIter`` to ``iterations``.
 
         Returns a summary: steps run, their wall seconds (validation and
-        checkpoints included) and clips per second over them, and the
-        last iteration reached."""
+        checkpoints included) and clips per second over them, the last
+        iteration reached, and the kernel launches the run made
+        (``core/cuda_build.LAUNCHES``, by kernel name)."""
         cfg = self.config
         if cfg.currentIteration > 0:
             self.load_parameters()
@@ -661,6 +668,7 @@ class NetworkFactory:
                                         "{}".format(cfg.pretrain))
             self.load_pretrained(cfg.pretrain)
 
+        launches_before = dict(cuda_build.LAUNCHES)
         it = cfg.currentIteration
         self._aug_step = int(it)
         total = cfg.totalIterations
@@ -832,4 +840,6 @@ class NetworkFactory:
         return {"steps": steps_this_run, "seconds": seconds,
                 "clips_per_s": steps_this_run * cfg.batchSize / seconds
                 if seconds > 0 else 0.0,
-                "last_iteration": it}
+                "last_iteration": it,
+                "launches": {name: count - launches_before.get(name, 0)
+                             for name, count in cuda_build.LAUNCHES.items()}}

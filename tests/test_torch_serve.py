@@ -2,10 +2,13 @@
 (/analyse with PNG and raw bytes, /healthz, /metrics, /warmup), the
 ``serve`` CLI's refusal to start without CUDA unless ``--device cpu``,
 and subprocesses that block ``jax``, ``flax``, ``optax`` and
-``scd_resnet_tpu`` and still import the port (``trace``, ``test``, the
-msgpack reader and the parallel layer among its modules), serve a clip, preprocess a small
-slide through ``python -m scd_resnet_tpu_torch.preprocess``, build
-``DCNPooling``, and train
+``scd_resnet_tpu`` (and the root ``tools``) and still import the port
+(``trace``, ``test``, the msgpack reader, the parallel layer and the
+tools of ``scd_resnet_tpu_torch/tools`` among its modules), serve a
+clip, preprocess a small slide through ``python -m
+scd_resnet_tpu_torch.preprocess``, build ``DCNPooling``, score fixture
+detections with ``tools/f1_eval`` and the F1 pipeline's eval stage, and
+train
 through ``python -m scd_resnet_tpu_torch.train`` (the legacy CornerNet
 with remat among the models)."""
 
@@ -117,7 +120,7 @@ def test_serve_cli_needs_cuda_unless_cpu(tmp_path, monkeypatch):
 BLOCK = textwrap.dedent("""
     import importlib.abc, sys
 
-    BLOCKED = ("jax", "jaxlib", "flax", "optax", "scd_resnet_tpu")
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "scd_resnet_tpu", "tools")
 
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -155,7 +158,7 @@ SERVE_BLOCKED = BLOCK + textwrap.dedent("""
     assert msgpack.unpackb(b"\\x81\\xa1a\\x01") == {"a": 1}
 
     # the preprocessing CLI on a small slide, and DCNPooling
-    import contextlib, io, runpy, tempfile, zipfile
+    import contextlib, io, json, os, runpy, tempfile, zipfile
     from scd_resnet_tpu_torch.data.synthetic import make_slide_and_annotation
     from scd_resnet_tpu_torch.models.deformable import DCNPooling
     root = tempfile.mkdtemp()
@@ -171,6 +174,35 @@ SERVE_BLOCKED = BLOCK + textwrap.dedent("""
     pooled = DCNPooling(2, pooled_size=3, group_size=3, deform_fc_dim=8)(
         torch.randn(1, 18, 16, 16), torch.tensor([[0.0, 4, 4, 40, 50]]))
     assert pooled.shape == (1, 2, 3, 3)
+
+    # the F1 tools and the label tools; f1_eval and the pipeline's eval
+    # stage on fixture files
+    from scd_resnet_tpu_torch.data import labels
+    from scd_resnet_tpu_torch.tools import (
+        eval_checkpoint, export_checkpoint, f1_eval, f1_pipeline,
+        label_server, label_tool, loadtest)
+    f1 = root + "/f1"
+    os.makedirs(f1 + "/test_annots")
+    labels.save_markers(f1 + "/test_annots/1.txt",
+                        [labels.Marker(90, 100, 110, 100, 10, 20),
+                         labels.Marker(300, 200, 320, 210, 10, 20)])
+    labels.save_markers(f1 + "/test_annots/2.txt",
+                        [labels.Marker(50, 50, 60, 60, 10, 20)])
+    dets = {"detections": [{"image": f1 + "/test_imgs/1.png", "x": 101.0,
+                            "y": 99.0, "rhr": 0.5}],
+            "contract": "centerOffset",
+            "images": [f1 + "/test_imgs/1.png", f1 + "/test_imgs/2.png"]}
+    for name in ("live", "traced"):
+        with open(f1 + "/" + name + ".json", "w") as f:
+            json.dump(dets, f)
+    with contextlib.redirect_stdout(io.StringIO()):
+        totals = f1_eval.main([f1 + "/live.json", f1 + "/test_annots"])
+        f1_pipeline.main(["--root", f1, "--stage", "eval", "--device",
+                          "cpu"])
+    assert (totals["tp"], totals["fp"], totals["fn"]) == (1, 0, 2)
+    with open(f1 + "/report.json") as f:
+        report = json.load(f)
+    assert report["equality_rate"] == 1.0 and report["objects"] == 3
 """) + LEAK_CHECK + 'print("served", len(detections))\n'
 
 # python -m scd_resnet_tpu_torch.train <tiny config> --device cpu, for a
