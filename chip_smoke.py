@@ -7,9 +7,11 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
 ``/usr/local/cuda``) and this checkout. It drives the port only
 (``scd_resnet_tpu_torch``; nothing of JAX or of ``scd_resnet_tpu``):
 
-1. prints the toolchain and the card (``nvidia-smi`` name and power
-   limit), builds every kernel source (``csrc/*.cu``, one ``nvcc`` each,
-   all started together) and starts writing the seeded synthetic 512x512
+1. prints the toolchain, the card (``nvidia-smi`` name and power
+   limit) and the build cache's directory and fingerprint
+   (``core/compile_cache``), builds every kernel source (``csrc/*.cu``,
+   one ``nvcc`` each) and the host library (``csrc/scdio.cpp``, ``g++``),
+   all started together, and starts writing the seeded synthetic 512x512
    training archive in a subprocess (cached under ``build/``), phase
    10's slides in another and phase 12's (its gen stage) in a third;
 2. holds the corner-pool kernel (``csrc/corner_pool.cu``) against its
@@ -103,7 +105,14 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
    gather once and nothing else; ``python -m scd_resnet_tpu_torch.test
    -c`` on the ``centerOffsetRes10`` checkpoint with ``--pipelined
    --fit`` over three PNGs must give the live analyzer's detections and
-   a fit;
+   a fit. The inference grayscale of a seeded 3092x2056 uint8 RGB slide
+   through the host library must equal numpy's to the bit (both times
+   printed). A fresh ``test -m`` process on the ``cornerCPoolRes10``
+   bundle and an RGB PNG of the slide, with the build cache warm, must
+   build nothing (every file under the cache keeps its modification
+   time, none is added), and one with ``SCD_NO_COMPILE_CACHE=1`` (every
+   library built again) must give the same detections; each process's
+   seconds to its result are printed;
 7. holds the heatmap-render kernel (``csrc/render_heatmap.cu``), one
    launch for every label map of a batch, against its plain version in
    each of its map sets: M = 1 (the center map), M = 3 (center, tl and
@@ -188,16 +197,23 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
    CPU through the same helper must agree within
    ``ops/augment.rotation_tolerance`` (the archive's first clip equal to
    the card's to the bit), and its records within 8 float32 ulps of their
-   largest coordinate. Then exp74's widths train from that archive
+   largest coordinate. The archive is read by the host library's
+   threaded reader and by the numpy reader: the same names and arrays to
+   the bit, each reader's seconds, its threads and the cores printed.
+   Then exp74's widths train from that archive
    (560 training rows, 560 validation clips) for 20 steps, validated
    at 10 and 20, with ``debug`` and ``SCD_PROFILE_*`` around steps 12-13:
    the overlays must be there, the trace must name the render's and the
    stem pool backward's kernels, the losses be finite and falling, and
    the launch counts (set to 0 just before the run, read just after) be
-   exactly K1 20 + 3 chunks and K5 20, nothing else: the newest path of
-   both. Last, ``DCNPooling`` forward and backward at x (2, 392, 128,
-   128) with 256 ROIs, pooled 7 with 4 x 4 samples, on the card against
-   the CPU within the float32 bounds that ``check_psroi`` derives;
+   exactly K1 20 + 3 chunks and K5 20, nothing else. Then 10 steps of
+   exp74 streamed from the host (``residency: host``, each batch packed
+   by the host library), validated at step 10, through the train entry
+   point: losses finite, K1 10 + 3 chunks and K5 10 exactly, nothing
+   else: the newest path of both. Last, ``DCNPooling`` forward and
+   backward at x (2, 392, 128, 128) with 256 ROIs, pooled 7 with 4 x 4
+   samples, on the card against the CPU within the float32 bounds that
+   ``check_psroi`` derives;
 11. the parallel layer, on the one card (its ranks and stages share
    ``cuda:0``, which checks correctness, not scaling). (a) exp74 under
    ``torchrun --nproc_per_node 1`` on NCCL (this script re-run with
@@ -251,7 +267,10 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
 
 ``python3 chip_smoke.py --cards`` runs the parallel layer across four
 cards instead (``cards_main``: two and four NCCL ranks, the pipeline's
-stages on two cards, mesh serving over four).
+stages on two cards, mesh serving over four, and exp74 streamed from
+the host on two torchrun nodes of two cards each, every rank's rows its
+block of its node's batch); ``--cards nodes`` runs that last job
+alone.
 
 Any failed phase raises and the script exits non-zero without the last
 line. It exits non-zero at once when ``torch.cuda.is_available()`` is
@@ -263,6 +282,7 @@ from __future__ import annotations
 import copy
 import ctypes
 import faulthandler
+import hashlib
 import io
 import json
 import math
@@ -283,13 +303,14 @@ import torch.nn.functional as F
 from PIL import Image
 
 from scd_resnet_tpu_torch import serve
-from scd_resnet_tpu_torch.core import cuda_build
+from scd_resnet_tpu_torch.core import compile_cache, cuda_build
 from scd_resnet_tpu_torch.core.checkpoint import save_checkpoint
 from scd_resnet_tpu_torch.core.config import Configuration
 from scd_resnet_tpu_torch.core.device import (
     reproducible_float32,
     training_backends,
 )
+from scd_resnet_tpu_torch.data import native_io
 from scd_resnet_tpu_torch.data.archive import read_archive
 from scd_resnet_tpu_torch.data.dataset import VALIDATION_CHUNK, SCDDataset
 from scd_resnet_tpu_torch.data.preprocess import (
@@ -337,12 +358,17 @@ from scd_resnet_tpu_torch.ops import gaussian
 from scd_resnet_tpu_torch.ops import max_pool as mp
 from scd_resnet_tpu_torch.ops.augment import rotation_tolerance
 from scd_resnet_tpu_torch.ops.dcn import deform_psroi_pooling
-from scd_resnet_tpu_torch.ops.image import grayscale_preprocess
+from scd_resnet_tpu_torch.ops.image import (
+    grayscale_inference_u8,
+    grayscale_inference_u8_plain,
+    grayscale_preprocess,
+)
 from scd_resnet_tpu_torch.ops.radius import corner_threshold_radius
 from scd_resnet_tpu_torch.parallel.mesh import (
     TIMEOUT_S,
     full_gradients,
     init_distributed,
+    node_layout,
     stage_devices,
 )
 from scd_resnet_tpu_torch.parallel.pipeline import (
@@ -384,6 +410,7 @@ STEM_EDGE_SHAPES = ((2, 3, 37, 45), (1, 2, 1, 1), (1, 2, 6, 7), (1, 1, 2, 3),
                     (2, 35000, 3, 5))
 KERNEL_SOURCES = ("corner_pool.cu", "render_heatmap.cu", "max_pool_bwd.cu",
                   "dcn_gather.cu")
+BUILD_SOURCES = KERNEL_SOURCES + (native_io.SOURCE,)  # and the host library
 # the DCN's input at the S/32 map, (H, W, C), and its 3x3 taps
 DCN_MAP, DCN_TAPS = (16, 16, 512), 9
 DCN_BATCHES = {"served": 48, "train": 32, "validation": 64}
@@ -409,6 +436,9 @@ PRE_SLIDES, PRE_OBJECTS, PRE_SEED = 2, 24, 3092
 PRE_MARGIN = "244 252 248 252"
 PRE_STEPS, PRE_VALIDATE_EVERY, PRE_PROFILE = 20, 10, (12, 2)
 PRE_TRACE_KERNELS = ("render_heatmaps_kernel", "max_pool_bwd_kernel")
+# phase 10: exp74 streamed from the host, HOST_STEPS steps; phase 6: the
+# grayscale of a seeded RGB slide, timed over GRAY_ROUNDS rounds
+HOST_STEPS, GRAY_SEED, GRAY_ROUNDS = 10, 2060, 3
 # phase 12: the F1 pipeline (tools/f1_pipeline) cut to F1_TRAIN_SLIDES
 # train and F1_TEST_SLIDES held-out slides and F1_ITERS iterations, its
 # train stage traced over F1_PROFILE = (first step, steps); then
@@ -1506,7 +1536,7 @@ def check_test_checkpoint(pngs, build_dir):
     got = [[d["image"], d["x"], d["y"], d["rhr"]]
            for d in served["detections"]]
     if served["images"] != pngs or got != want or not got \
-            or set(served.get("gauss2", {})) != {"a1", "m1", "s1", "a2",
+            or set(served.get("gauss2") or {}) != {"a1", "m1", "s1", "a2",
                                                  "m2", "s2"}:
         raise AssertionError("test -c --pipelined --fit: {} detections, the "
                              "live analyzer {}; keys {}".format(
@@ -1516,6 +1546,90 @@ def check_test_checkpoint(pngs, build_dir):
             len(pngs), seconds, len(got), served["gauss2"]))
     return {"seconds": seconds, "detections": len(got),
             "gauss2": served["gauss2"]}
+
+
+def check_grayscale():
+    """Phase 6: the inference grayscale of a seeded 3092x2056 uint8 RGB
+    slide through the host library and through numpy: equal to the bit;
+    each one's time (best of ``GRAY_ROUNDS``, host clock)."""
+    rgb = np.random.default_rng(GRAY_SEED).integers(
+        0, 256, (SLIDE_H, SLIDE_W, 3), dtype=np.uint8)
+    times = {}
+    for name, fn in (("native", grayscale_inference_u8),
+                     ("numpy", grayscale_inference_u8_plain)):
+        best = float("inf")
+        for _ in range(GRAY_ROUNDS):
+            t0 = time.perf_counter()
+            out = fn(rgb)
+            best = min(best, time.perf_counter() - t0)
+        times[name] = (best * 1e3, out)
+    equal = times["native"][1].tobytes() == times["numpy"][1].tobytes()
+    log("grayscale of a seeded {}x{} RGB slide: host library {:.3f} ms, "
+        "numpy {:.3f} ms (best of {}), equal to the bit: {}".format(
+            SLIDE_W, SLIDE_H, times["native"][0], times["numpy"][0],
+            GRAY_ROUNDS, equal))
+    if not equal:
+        raise AssertionError("the host library's grayscale differs from "
+                             "numpy's")
+    return {"native_ms": times["native"][0], "numpy_ms": times["numpy"][0],
+            "pixels": SLIDE_W * SLIDE_H}
+
+
+def library_times(root: str):
+    """Every file under the build cache's root, by its modification
+    time."""
+    return {os.path.join(d, f): os.stat(os.path.join(d, f)).st_mtime_ns
+            for d, _, files in os.walk(root) for f in files}
+
+
+def check_build_cache(slide, build_dir, cache_dir, device: str = "cuda"):
+    """Phase 6: ``python -m scd_resnet_tpu_torch.test -m`` on the
+    ``cornerCPoolRes10`` bundle and an RGB PNG of the slide (the host
+    library's grayscale and the corner-pool kernels), in a fresh process
+    with the build cache warm: it must build nothing (every file under
+    the cache's root keeps its modification time and none is added).
+    Then the same with ``SCD_NO_COMPILE_CACHE=1`` (a fresh build
+    directory, every library built again): the same detections. Each
+    process's seconds to its result, start-up included."""
+    png = os.path.join(build_dir, "slide_rgb.png")
+    tint = np.random.default_rng(GRAY_SEED).integers(
+        0, 24, (SLIDE_H, SLIDE_W, 3), dtype=np.uint8)
+    Image.fromarray(np.clip(slide[..., None].astype(np.int16) + tint, 0,
+                            255).astype(np.uint8)).save(png)
+    bundle = os.path.join(build_dir, "cornerCPoolRes10.pt2")
+    before = library_times(cache_dir)
+    runs = {}
+    for name, env in (("warm", {}), ("uncached",
+                                     {compile_cache.NO_CACHE_ENV: "1"})):
+        out_json = os.path.join(build_dir, "cache_{}.json".format(name))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "scd_resnet_tpu_torch.test", png, "-m",
+             bundle, "-o", out_json, "--device", device], cwd=REPO,
+            capture_output=True,
+            text=True, timeout=600, env=dict(os.environ, **env))
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError("test -m ({}) failed:\n{}".format(
+                name, proc.stderr[-4000:]))
+        with open(out_json) as f:
+            runs[name] = (seconds, json.load(f)["detections"])
+        if name == "warm" and library_times(cache_dir) != before:
+            raise AssertionError("a process with the build cache warm "
+                                 "built again: {} -> {}".format(
+                                     before, library_times(cache_dir)))
+    same = runs["warm"][1] == runs["uncached"][1] and runs["warm"][1]
+    log("build cache {} (fingerprint {}): {} libraries kept; test -m on an "
+        "RGB PNG in a fresh process {:.2f} s warm (nothing built), {:.2f} s "
+        "with SCD_NO_COMPILE_CACHE=1; {} detections, the same: {}".format(
+            cache_dir, os.path.basename(cache_dir),
+            sum(name.endswith(".so") for name in before), runs["warm"][0],
+            runs["uncached"][0], len(runs["warm"][1]), bool(same)))
+    if not same:
+        raise AssertionError("the uncached process found other detections")
+    return {"cache_dir": cache_dir, "warm_s": runs["warm"][0],
+            "uncached_s": runs["uncached"][0],
+            "detections": len(runs["warm"][1])}
 
 
 # -- 7. the render kernel against its plain version -----------------------------
@@ -2329,6 +2443,78 @@ def train_preprocessed(archive: str, work: str, device: str = "cuda",
             "launches": launches, "peak_memory_gb": peak_gb}
 
 
+def check_archive_readers(archive: str):
+    """Phase 10: the preprocessed archive through the host library's
+    threaded reader and through the numpy reader: the same names and
+    arrays to the bit; each reader's seconds (the archive was just
+    written, so its pages are warm), the threads and the cores."""
+    threads = native_io.reader_threads()
+    got = {}
+    for reader in ("native", "numpy"):
+        t0 = time.perf_counter()
+        arrays = read_archive(archive, reader, threads)
+        got[reader] = (time.perf_counter() - t0, arrays)
+    native, plain = got["native"][1], got["numpy"][1]
+    equal = native[0] == plain[0] and all(
+        a.dtype == b.dtype and a.shape == b.shape
+        and a.tobytes() == b.tobytes() for a, b in zip(native[1:], plain[1:]))
+    clips = len(native[0])
+    out = {"clips": clips, "archive_mb": os.path.getsize(archive) / 1e6,
+           "native_s": got["native"][0], "numpy_s": got["numpy"][0],
+           "native_clips_per_s": clips / got["native"][0],
+           "numpy_clips_per_s": clips / got["numpy"][0],
+           "threads": threads, "cores": os.cpu_count()}
+    log("archive readers on {} ({} clips of {}x{}, {:.1f} MB): host library "
+        "{:.3f} s on {} threads ({:.0f} clips/s), numpy {:.3f} s ({:.0f} "
+        "clips/s); {} cores; equal to the bit: {}".format(
+            archive, clips, *native[1].shape[1:], out["archive_mb"],
+            out["native_s"], threads, out["native_clips_per_s"],
+            out["numpy_s"], out["numpy_clips_per_s"], out["cores"], equal))
+    if not equal:
+        raise AssertionError("the two readers read different arrays")
+    return out
+
+
+def train_host_streamed(archive: str, work: str, device: str = "cuda",
+                        **overrides):
+    """Phase 10: exp74's widths for HOST_STEPS steps from the archive the
+    card wrote, read by the host library and streamed from the host
+    (``residency: host``, each batch packed by its memcpy), validated at
+    the last step, through the train entry point: losses finite, and the
+    launch counts (set to 0 just before the run, read just after) exactly
+    K1 HOST_STEPS + the validation chunks and K5 HOST_STEPS."""
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    data_dir = os.path.dirname(archive)
+    values = settings(EXP74, data_dir, work, iterations=HOST_STEPS,
+                      validation=HOST_STEPS, snapshot=HOST_STEPS,
+                      residency="host", **overrides)
+    cuda_build.reset_launches()
+    summary = train_cli.main([write_config(os.path.join(
+        work, "config.json"), values), "--device", device])
+    launches = dict(cuda_build.LAUNCHES)
+    with open(os.path.join(data_dir, "scdx16p100.split.json")) as f:
+        n_val = len(json.load(f)["validation"])
+    expected = expected_launches(values, HOST_STEPS, n_val, runs=1)
+    losses = np.loadtxt(os.path.join(work, "results", "losses.{}.{}.txt"
+                                     .format(values["trainName"],
+                                             HOST_STEPS)),
+                        delimiter=",", ndmin=2)
+    log("exp74 streamed from the host ({} steps, batches packed by the "
+        "host library): {:.1f} clips/s ({:.1f} ms a step, the validation "
+        "included); losses finite: {}; launches {} (expected {})".format(
+            summary["steps"], summary["clips_per_s"],
+            summary["seconds"] * 1e3 / max(summary["steps"], 1),
+            bool(np.isfinite(losses).all()), launches, expected))
+    if losses.shape[0] != HOST_STEPS or not np.isfinite(losses).all():
+        raise AssertionError("loss rows missing or not finite")
+    if launches != expected:
+        raise AssertionError("exp74 streamed from the host launched {}, "
+                             "expected {}".format(launches, expected))
+    return {"steps": summary["steps"], "clips_per_s": summary["clips_per_s"],
+            "seconds": summary["seconds"], "launches": launches}
+
+
 def check_psroi(gpu_line: str, device: str = "cuda"):
     """DCNPooling forward and backward on the card against the CPU, at
     x (2, 392, 128, 128) (an S/4 map of 512^2 clips, 8 channels x 7^2
@@ -2466,6 +2652,7 @@ MESH_TIMEOUT_S = 600  # one torchrun launch, start-up and every rank included
 # --cards: a launch of three jobs took 49.4 s on two cards (NVIDIA H100
 # 80GB HBM3, 700 W); a hung collective fails after 90 s
 CARDS, CARDS_TIMEOUT_S, CARDS_COLLECTIVE_TIMEOUT_S = 4, 240, 90
+NODE_STEPS = 4  # the two-node job's steps
 STEP_SEED = 11  # the draws of phase 11's float32 steps
 PIPE_STEPS, TORCHRUN_STEPS, TIMED_STEPS = 10, 20, 10
 # one float32 exp74 step of two ranks on one card against one process:
@@ -2552,12 +2739,61 @@ def timed_steps(values, device: str, warm: int = 3, steps: int = TIMED_STEPS,
     return out
 
 
+def row_digests(samples, locs, counts):
+    """One digest a row of a host batch: its clip's, records' and
+    count's bytes."""
+    return [hashlib.sha1(s.tobytes() + l.tobytes() + c.tobytes()).hexdigest()
+            for s, l, c in zip(samples, locs, counts)]
+
+
+def node_rows(values, device: str, backend: str, out: str):
+    """A rank of the two-node job: the train entry point on ``values``
+    (streamed from the host), recording the rows of each step it trains,
+    and the rows its data-axis block of its node's batch must hold, by
+    the plain rule from the dataset's order: node n of N reads
+    ``order[n::N]`` of each (seed, 7919, epoch)-keyed shuffle, and every
+    node takes as many batches as the smallest shard yields."""
+    got, seen = [], {}
+    train_rows = NetworkFactory.train_rows
+
+    def recording(self, samples, locs, counts, draws=None):
+        seen["factory"] = self
+        got.append(row_digests(samples, locs, counts))
+        return train_rows(self, samples, locs, counts, draws)
+
+    NetworkFactory.train_rows = recording
+    try:
+        summary = train_cli.main([write_config(out + ".json", values),
+                                  "--device", device, "--backend", backend])
+    finally:
+        NetworkFactory.train_rows = train_rows
+    factory = seen["factory"]
+    ds, batch = factory.dataset, factory.config.batchSize
+    nodes, node = node_layout()
+    per_epoch = len(ds.order) // nodes // batch
+    per_rank = batch // factory._data_size
+    first = factory._data_index * per_rank
+    want = []
+    for step in range(len(got)):
+        epoch, k = divmod(step, per_epoch)
+        order = np.asarray(ds.order)[np.random.default_rng(
+            (ds._seed, 7919, epoch)).permutation(len(ds.order))]
+        idx = order[node::nodes][k * batch:(k + 1) * batch][
+            first:first + per_rank]
+        want.append(row_digests(ds.samples[idx], ds.locs[idx],
+                                ds.counts[idx]))
+    return {"rank": factory.rank, "node": node, "nodes": nodes,
+            "data_index": factory._data_index, "device": str(factory.device),
+            "got": got, "want": want, "summary": summary}
+
+
 def rank_job(spec_path: str) -> int:
     """A ``torchrun`` rank of phase 11 and ``--cards`` (``chip_smoke.py
     --rank-job spec.json``): joins the process group and runs the spec's
-    jobs, a float32 ``one_step``, a timed window, or a run of the train
-    entry point with its launch counts, peak memory and a timed window;
-    rank 0 writes each job's result. A job still running after the
+    jobs, a float32 ``one_step``, a timed window, a run of the train
+    entry point with its launch counts, peak memory and a timed window,
+    or the two-node job's rows (``node_rows``, which every rank writes,
+    as ``<out>.rank<r>``); rank 0 writes each job's result. A job still running after the
     collective timeout prints every thread's stack (a hung collective
     raises on the rank that waits only after it), and so does a rank
     that aborts (NCCL's watchdog ends a rank whose collective timed
@@ -2576,6 +2812,11 @@ def rank_job(spec_path: str) -> int:
                 result = one_step(job["values"], spec["device"])
             elif job["kind"] == "timed":
                 result = timed_steps(job["values"], spec["device"])
+            elif job["kind"] == "rows":
+                result = node_rows(job["values"], spec["device"],
+                                   spec["backend"], job["out"] + ".rank{}"
+                                   .format(rank))
+                torch.save(result, job["out"] + ".rank{}".format(rank))
             else:
                 path = write_config(job["out"] + ".json", job["values"])
                 torch.cuda.reset_peak_memory_stats()
@@ -2598,10 +2839,13 @@ def rank_job(spec_path: str) -> int:
 
 def torchrun(ranks: int, device: str, backend: str, jobs, work: str,
              timeout_s: float = MESH_TIMEOUT_S,
-             collective_timeout_s: float = TIMEOUT_S):
+             collective_timeout_s: float = TIMEOUT_S, nodes: int = 1):
     """``jobs`` on ``ranks`` ranks started by ``torchrun`` (this script
     with ``--rank-job``); rank 0's results, one a job. The launch fails
-    after ``timeout_s``, a collective after ``collective_timeout_s``."""
+    after ``timeout_s``, a collective after ``collective_timeout_s``.
+    With ``nodes`` > 1, one ``torchrun`` agent a node (c10d rendezvous on
+    this machine), each on its own cards (``CUDA_VISIBLE_DEVICES``) with
+    ``ranks / nodes`` ranks."""
     spec = write_config(os.path.join(work, "ranks.json"), {
         "device": device, "backend": backend, "jobs": jobs,
         "timeout_s": collective_timeout_s})
@@ -2610,29 +2854,60 @@ def torchrun(ranks: int, device: str, backend: str, jobs, work: str,
         port = sock.getsockname()[1]
     # ranks that share a card with this process get the memory its
     # allocator caches from the earlier phases
-    torch.cuda.empty_cache()
-    free, total = torch.cuda.mem_get_info()
-    log("torchrun: {} rank(s); {:.1f} of {:.1f} GB free on this process's "
-        "card".format(ranks, free / 1024 ** 3, total / 1024 ** 3))
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
-           "--nproc_per_node", str(ranks), "--master_addr", "127.0.0.1",
-           "--master_port", str(port), os.path.abspath(__file__),
-           "--rank-job", spec]
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        log("torchrun: {} rank(s); {:.1f} of {:.1f} GB free on this "
+            "process's card".format(ranks, free / 1024 ** 3,
+                                    total / 1024 ** 3))
+    per_node = ranks // nodes
+    if nodes == 1:
+        agents = [([sys.executable, "-m", "torch.distributed.run",
+                    "--nnodes", "1", "--nproc_per_node", str(ranks),
+                    "--master_addr", "127.0.0.1", "--master_port", str(port),
+                    os.path.abspath(__file__), "--rank-job", spec], {})]
+    else:
+        agents = [([sys.executable, "-m", "torch.distributed.run",
+                    "--nnodes", str(nodes), "--node-rank", str(n),
+                    "--nproc-per-node", str(per_node), "--rdzv-backend",
+                    "c10d", "--rdzv-endpoint", "127.0.0.1:{}".format(port),
+                    "--rdzv-id", "chip_smoke", os.path.abspath(__file__),
+                    "--rank-job", spec],
+                   {"CUDA_VISIBLE_DEVICES": ",".join(
+                       str(c) for c in range(n * per_node,
+                                             (n + 1) * per_node))}
+                   if device.startswith("cuda") else {})
+                  for n in range(nodes)]
+    logs = [os.path.join(work, "torchrun{}.log".format(n) if nodes > 1
+                         else "torchrun.log") for n in range(nodes)]
     t0 = time.perf_counter()
-    with open(os.path.join(work, "torchrun.log"), "w") as out:
-        proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT,
-                                start_new_session=True)
-        try:
-            code = proc.wait(timeout=timeout_s)
-        except subprocess.TimeoutExpired:
-            code = "timed out after {} s".format(timeout_s)
-        finally:
+    procs = []
+    try:
+        for (cmd, env), path in zip(agents, logs):
+            with open(path, "w") as out:
+                procs.append(subprocess.Popen(
+                    cmd, stdout=out, stderr=subprocess.STDOUT,
+                    start_new_session=True, env=dict(os.environ, **env)))
+        deadline = time.monotonic() + timeout_s
+        codes = []
+        for proc in procs:
+            try:
+                codes.append(proc.wait(timeout=max(
+                    deadline - time.monotonic(), 0.1)))
+            except subprocess.TimeoutExpired:
+                codes.append("timed out after {} s".format(timeout_s))
+    finally:
+        for proc in procs:
             if proc.poll() is None:
                 os.killpg(proc.pid, 9)
                 proc.wait()
+    code = next((c for c in codes if c != 0), 0) \
+        if len(codes) == nodes else "an agent did not start"
     if code != 0:  # each rank's last lines: the first to fail is the cause
-        with open(os.path.join(work, "torchrun.log")) as f:
-            lines = f.read().splitlines()
+        lines = []
+        for path in logs:
+            with open(path) as f:
+                lines += f.read().splitlines()
         tails = ["\n".join(line for line in lines
                            if line.startswith("[rank{}]".format(r)))[-2500:]
                  for r in range(ranks)]
@@ -3245,6 +3520,58 @@ def cards_steps(ranks: int, shapes, data_dir: str, work: str, single):
     return steps, train
 
 
+def check_two_nodes(data_dir: str, work: str, device: str = "cuda",
+                    backend: str = "nccl", **overrides):
+    """``--cards``: exp74 streamed from the host on two torchrun nodes of
+    two ranks each (two agents on this machine, cards 0-1 and 2-3, a
+    data axis of four), NODE_STEPS steps of the train entry point: every
+    rank must finish, and each step's rows on each rank must be its
+    data-axis block of its node's batch (``node_rows``), the two nodes'
+    rows of a step apart. ``device="cpu"``, ``backend="gloo"`` with a small model
+    in ``overrides`` rehearses it on the CPU."""
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = os.path.join(work, "rows.pt")
+    values = settings(EXP74, data_dir, work, iterations=NODE_STEPS,
+                      validation=10 * NODE_STEPS, snapshot=NODE_STEPS,
+                      residency="host", **overrides)
+    t0 = time.perf_counter()
+    torchrun(4, device, backend, [{"kind": "rows", "values": values,
+                                   "out": out}], work,
+             timeout_s=CARDS_TIMEOUT_S,
+             collective_timeout_s=CARDS_COLLECTIVE_TIMEOUT_S, nodes=2)
+    seconds = time.perf_counter() - t0
+    ranks = [torch.load(out + ".rank{}".format(r), weights_only=False)
+             for r in range(4)]
+    for r, result in enumerate(ranks):
+        if (result["rank"] != r or result["nodes"] != 2
+                or result["summary"]["steps"] != NODE_STEPS
+                or result["got"] != result["want"]):
+            raise AssertionError("rank {} of the two-node job: node {} of "
+                                 "{}, {} steps, rows as the plain rule: "
+                                 "{}".format(r, result["node"],
+                                             result["nodes"],
+                                             result["summary"]["steps"],
+                                             result["got"] == result["want"]))
+    # an epoch's shards are apart, so the nodes' rows of a step are too
+    by_node = [[{row for result in ranks if result["node"] == n
+                 for row in result["got"][step]} for n in (0, 1)]
+               for step in range(NODE_STEPS)]
+    if {result["node"] for result in ranks} != {0, 1} or any(
+            rows0 & rows1 for rows0, rows1 in by_node):
+        raise AssertionError("the two nodes' rows are not apart: "
+                             "{}".format([(r["rank"], r["node"])
+                                          for r in ranks]))
+    placement = [(r["rank"], r["node"], r["data_index"], r["device"])
+                 for r in ranks]
+    log("two nodes x two ranks ({} over {}): {} steps each, every rank's "
+        "rows its block of its node's batch; (rank, node, data index, "
+        "device) {}; {:.1f} s".format(device, backend, NODE_STEPS,
+                                      placement, seconds))
+    return {"placement": placement, "steps": NODE_STEPS,
+            "seconds": seconds, "rows_equal": True}
+
+
 def cards_serving(slide, build_dir, cards: int):
     """``cornerCPoolRes10`` and ``centerOffsetRes10`` over a mesh of
     ``cards`` cards: the detections of the monolithic analyzer on cuda:0,
@@ -3287,7 +3614,7 @@ def cards_serving(slide, build_dir, cards: int):
     return out
 
 
-def cards_main() -> int:
+def cards_main(only_nodes: bool = False) -> int:
     """``chip_smoke.py --cards``: the parallel layer across four cards, one
     NCCL rank a card (the collectives' all-gather path). Every collective
     of a launch, on every process group, fails after
@@ -3305,7 +3632,9 @@ def cards_main() -> int:
     3. ``cornerCPoolRes10`` and ``centerOffsetRes10`` served over a mesh
        of the four cards (``cards_serving``);
     4. hourglass2_best pipelined, ``meshShape [1, 2]`` data x pipe with
-       its stages on cuda:0 and cuda:1 (``check_pipeline``).
+       its stages on cuda:0 and cuda:1 (``check_pipeline``);
+    5. exp74 streamed from the host on two nodes of two ranks
+       (``check_two_nodes``; alone with ``--cards nodes``).
 
     Prints a results line, the card line and the last line of ``main``
     (with the count of cards)."""
@@ -3317,6 +3646,7 @@ def cards_main() -> int:
     gpu_line = run(["nvidia-smi", "--query-gpu=name,power.limit",
                     "--format=csv,noheader"])
     log("cards: {}\n{}".format(torch.cuda.device_count(), gpu_line))
+    log("build cache: {}".format(compile_cache.enable_compilation_cache()))
     reproducible_float32()
     t_start = time.perf_counter()
     build_dir = os.path.join(REPO, "build", "chip_smoke_cards")
@@ -3327,15 +3657,20 @@ def cards_main() -> int:
     archive = os.path.join(data_dir, "scdx16p100.d")
     writer = start_archive(archive)
     try:
-        with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-            list(pool.map(cuda_build.build, KERNEL_SOURCES))
-        for source in KERNEL_SOURCES:
+        with ThreadPoolExecutor(len(BUILD_SOURCES)) as pool:
+            list(pool.map(cuda_build.build, BUILD_SOURCES))
+        for source in BUILD_SOURCES:
             cuda_build.load(source)
         finish_archive(writer, archive)
     finally:
         if writer is not None and writer.poll() is None:
             writer.kill()
             writer.wait()
+    out = {"card": gpu_line, "steps": {}, "seconds": {}}
+    if only_nodes:
+        out["two_nodes"] = check_two_nodes(data_dir,
+                                           os.path.join(build_dir, "nodes"))
+        return cards_end(out, gpu_line, t_start)
     step_values = settings(EXP74, data_dir, os.path.join(work, "single"),
                            precision="float32", residency="host")
     single = {"values": step_values,
@@ -3347,9 +3682,8 @@ def cards_main() -> int:
     log("exp74, one card: {:.2f} ms a bf16 step at the batch of 32; the "
         "card in one step: {}".format(one_card["step_ms"],
                                       one_card["overlap"]))
-    out = {"card": gpu_line, "steps": {}, "seconds": {},
-           "step_ms": {"1 card": one_card["step_ms"]},
-           "one_card_step": one_card["overlap"]}
+    out.update(step_ms={"1 card": one_card["step_ms"]},
+               one_card_step=one_card["overlap"])
     for ranks, shapes in ((2, [[2], [1, 2]]), (4, [[4], [2, 2]])):
         t0 = time.perf_counter()
         steps, train = cards_steps(ranks, shapes, data_dir, work, single)
@@ -3369,6 +3703,16 @@ def cards_main() -> int:
     out["pipeline"], out["pipeline_launches"] = check_pipeline(
         data_dir, os.path.join(build_dir, "pipeline"), n_val, device="cuda")
     out["seconds"]["pipeline"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["two_nodes"] = check_two_nodes(data_dir,
+                                       os.path.join(build_dir, "nodes"))
+    out["seconds"]["two_nodes"] = time.perf_counter() - t0
+    return cards_end(out, gpu_line, t_start)
+
+
+def cards_end(out, gpu_line: str, t_start: float) -> int:
+    """``--cards``' last three lines: its results, the card line and the
+    last line of ``main`` with the count of cards."""
     out["seconds"]["total"] = time.perf_counter() - t_start
     log(json.dumps(out))
     log(gpu_line)
@@ -3392,6 +3736,9 @@ def main() -> int:
         sys.version.split()[0], torch.__version__, torch.version.cuda,
         run([cuda_build.nvcc_path(), "--version"]).splitlines()[-1]))
     log("card: {}".format(gpu_line))
+    cache_dir = compile_cache.enable_compilation_cache()
+    log("build cache: {} (fingerprint {})".format(
+        cache_dir, os.path.basename(cache_dir)))
     reproducible_float32()
     build_dir = os.path.join(REPO, "build", "chip_smoke")
     data_dir = os.path.join(build_dir, "data")
@@ -3408,15 +3755,17 @@ def main() -> int:
             return time.perf_counter()
 
         try:
-            # 1. build every kernel from the checkout's sources, in parallel
+            # 1. build every kernel and the host library from the
+            # checkout's sources, in parallel
             t0 = time.perf_counter()
-            with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-                list(pool.map(cuda_build.build, KERNEL_SOURCES))
-            for source in KERNEL_SOURCES:
+            with ThreadPoolExecutor(len(BUILD_SOURCES)) as pool:
+                list(pool.map(cuda_build.build, BUILD_SOURCES))
+            for source in BUILD_SOURCES:
                 cuda_build.load(source)
-            log("built {} in {:.1f}s; ptxas:\n{}".format(
-                ", ".join(KERNEL_SOURCES), time.perf_counter() - t0,
-                "\n".join(cuda_build.build_log(s) for s in KERNEL_SOURCES)))
+            native_io.get_library()
+            log("built {} in {:.1f}s; compilers' output:\n{}".format(
+                ", ".join(BUILD_SOURCES), time.perf_counter() - t0,
+                "\n".join(cuda_build.build_log(s) for s in BUILD_SOURCES)))
             t0 = mark("build", t0)
 
             # 2-5. the corner-pool kernels, the stem pool's backward and the
@@ -3437,6 +3786,7 @@ def main() -> int:
                                          ("centerOffsetHourglass2", 13),
                                          ("cornerLegacyHourglass", 14),
                                          ("centerRes10", 15))]
+            gray = check_grayscale()
             t0 = mark("serving", t0)
             # 6, continued: the served checkpoints streamed, pipelined, traced
             # and served by the test CLI
@@ -3446,6 +3796,8 @@ def main() -> int:
             bundles = [check_bundle(arch, slide, pngs[0], build_dir)
                        for arch in ("cornerCPoolRes10", "centerOffsetRes10dcn")]
             t0 = mark("bundles", t0)
+            build_cache = check_build_cache(slide, build_dir, cache_dir)
+            t0 = mark("build_cache", t0)
             test_c = check_test_checkpoint(pngs, build_dir)
             t0 = mark("test_checkpoint", t0)
             finish_archive(writer, archive)
@@ -3504,9 +3856,14 @@ def main() -> int:
         pre_archive, preprocessed = check_preprocess(
             slide_dir, os.path.join(build_dir, "preprocess"), gpu_line)
         t0 = mark("preprocess", t0)
+        readers = check_archive_readers(pre_archive)
+        t0 = mark("archive_readers", t0)
         pre_trained = train_preprocessed(pre_archive, os.path.join(
             build_dir, "train_preprocessed"))
         t0 = mark("train_preprocessed", t0)
+        host_streamed = train_host_streamed(pre_archive, os.path.join(
+            build_dir, "train_host_streamed"))
+        t0 = mark("train_host_streamed", t0)
         psroi = check_psroi(gpu_line)
         t0 = mark("psroi", t0)
         # 11. the parallel layer: torchrun ranks on NCCL and on gloo, the
@@ -3530,8 +3887,8 @@ def main() -> int:
 
         # 13. results: every path's counts, the serving paths (oldest first)
         # before the training paths (oldest first), then the F1 pipeline's
-        # train stage; each kernel's launches are those of the newest path
-        # that runs it
+        # train stage and exp74 streamed from the natively read archive;
+        # each kernel's launches are those of the newest path that runs it
         paths = {"serve_cornerCPoolRes10": served[0]["launches"],
                  "serve_centerOffsetRes10dcn": served[2]["launches"],
                  "serve_cornerLegacyHourglass": served[4]["launches"],
@@ -3551,13 +3908,15 @@ def main() -> int:
                  "train_hourglass2_pipe": pipe_counts,
                  "serve_mesh_cornerCPoolRes10": mesh_counts,
                  "f1_pipeline_train": {name: f1_counts.get(name, 0)
-                                       for name in cuda_build.LAUNCHES}}
+                                       for name in cuda_build.LAUNCHES},
+                 "train_host_streamed_exp74": host_streamed["launches"]}
         # the render's map sets by the paths that launch them: M = 1 center
         # (exp74, dcn_full, hourglass2_best, centersize_full, exp74 from the
-        # preprocessed archive and under torchrun, the pipelined
-        # hourglass2, the F1 pipeline's train stage), M = 3 (cpool_best),
-        # the offset set twice a batch transform (legacy_full)
-        for set_name, path in (("center", "f1_pipeline_train"),
+        # preprocessed archive, resident and streamed from the host, and
+        # under torchrun, the pipelined hourglass2, the F1 pipeline's train
+        # stage), M = 3 (cpool_best), the offset set twice a batch
+        # transform (legacy_full)
+        for set_name, path in (("center", "train_host_streamed_exp74"),
                                ("center+tl+br", "train_cpool_best"),
                                ("offset", "train_legacy_full")):
             render["map_sets"][set_name]["main_path"] = path
@@ -3595,6 +3954,9 @@ def main() -> int:
                         "test_checkpoint": test_c, "training": trained,
                         "step_card_vs_cpu": steps, "preprocess": preprocessed,
                         "train_preprocessed": pre_trained, "psroi": psroi,
+                        "grayscale": gray, "build_cache": build_cache,
+                        "archive_readers": readers,
+                        "train_host_streamed": host_streamed,
                         "torchrun": ranks, "pipeline": piped,
                         "mesh_serving": mesh_served, "small_slides": small,
                         "f1_pipeline": f1,
@@ -3618,4 +3980,6 @@ if __name__ == "__main__":
         sys.exit(rank_job(sys.argv[2]))
     if sys.argv[1:] == ["--cards"]:
         sys.exit(cards_main())
+    if sys.argv[1:] == ["--cards", "nodes"]:
+        sys.exit(cards_main(only_nodes=True))
     sys.exit(main())

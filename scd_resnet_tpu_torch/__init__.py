@@ -22,5 +22,10 @@ and shards a served slide's clips over cards (``serve --mesh``, ``test
 --mesh``). The root tools have their counterparts in ``tools/``: the
 north-star F1 pipeline through the port's CLIs, the F1 scorer, a
 checkpoint's [It] line, the reference exporter, the label tools on
-``data/labels.py`` and the serving daemon's load test.
+``data/labels.py`` and the serving daemon's load test. The host input
+layer is C++ (``csrc/scdio.cpp`` through ``data/native_io``: the
+threaded archive reader, the batch packer, the served grayscale), a
+streamed epoch splits over ``torchrun`` nodes as JAX's splits over
+hosts, and ``core/compile_cache`` keys every compiled library by the
+machine and its compilers.
 """

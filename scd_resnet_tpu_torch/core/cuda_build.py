@@ -1,11 +1,20 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels and its host
+library.
 
 Each ``csrc/*.cu`` source exports plain C functions. On first use it is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
-``build/cuda/`` at the repository root (git-ignored), named by a hash of
-the source and the flags, and loaded with ``ctypes``. No PyTorch header
-is included, so a build takes seconds rather than the minutes a
-``torch.utils.cpp_extension`` build takes.
+``<root>/cuda/``, and ``csrc/scdio.cpp`` (the archive reader, batch
+packer and grayscale) with the host compiler (``$CXX``, default
+``g++``) under ``<root>/host/``. A library is named by a hash of its
+source, its compiler and its flags, built to a temporary name and moved
+into place, and loaded with ``ctypes``. No PyTorch header is included,
+so a build takes seconds rather than the minutes a
+``torch.utils.cpp_extension`` build takes. ``<root>`` is
+``build/<fingerprint>/`` at the repository root (git-ignored) unless
+``core/compile_cache.enable_compilation_cache`` set another; the
+fingerprint names the machine's CPU features and the compilers'
+versions, so a new toolchain builds anew instead of loading a library
+an older one built.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
@@ -24,17 +33,41 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# -ffp-contract=off: scdio_grayscale_u8 must stay bit-exact to numpy's
+# double arithmetic, and a contracted multiply-add rounds once where numpy
+# rounds twice. zlib is linked by its soname: the source declares the
+# entry points it uses, so zlib's headers and its dev symlink may be absent
+HOST_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared", "-Wall",
+              "-ffp-contract=off")
+HOST_LIBS = ("-l:libz.so.1", "-lpthread")
 
 LAUNCHES: Dict[str, int] = {}
 
 _libraries: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_root: Optional[Path] = None
+
+
+def set_build_root(path: str | os.PathLike) -> None:
+    """Where later builds go (``core/compile_cache`` sets it)."""
+    global _root
+    _root = Path(path)
+
+
+def build_root() -> Path:
+    """The build root, ``build/<fingerprint>/`` by default."""
+    if _root is None:
+        from scd_resnet_tpu_torch.core.compile_cache import (
+            enable_compilation_cache,
+        )
+
+        enable_compilation_cache()
+    return _root
 
 
 def reset_launches() -> None:
@@ -58,26 +91,45 @@ def nvcc_path() -> str:
                        "(needed to build the port's CUDA kernels)")
 
 
+def cxx_path() -> str:
+    """The host compiler: ``$CXX``, default ``g++``, on PATH."""
+    name = os.environ.get("CXX", "g++")
+    found = shutil.which(name)
+    if not found:
+        raise RuntimeError("host compiler {!r} not found (set CXX; needed "
+                           "to build csrc/scdio.cpp)".format(name))
+    return found
+
+
 def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` unless a library of the same hash
-    exists; returns the library path. The compiler's output (including
+    """Compile ``csrc/<source>`` (``.cu`` with ``nvcc`` into
+    ``<root>/cuda/``, ``.cpp`` with the host compiler into
+    ``<root>/host/``) unless a library of the same hash exists; returns
+    the library path. The compiler's output (for ``nvcc`` with
     ``-Xptxas -v``: registers, shared memory, spills) is kept beside it
-    as ``<name>.log``."""
+    as ``<name>.log``; a failed build raises with that output."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / "{}-{}.so".format(src.stem, digest)
+    if src.suffix == ".cu":
+        kind, compiler, flags, libs = "cuda", nvcc_path(), NVCC_FLAGS, ()
+    else:
+        kind, compiler, flags, libs = "host", cxx_path(), HOST_FLAGS, \
+            HOST_LIBS
+    digest = hashlib.sha256(src.read_bytes() + " ".join(
+        (compiler, *flags, *libs)).encode()).hexdigest()[:16]
+    out_dir = build_root() / kind
+    lib = out_dir / "{}-{}.so".format(src.stem, digest)
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(".so.tmp{}".format(os.getpid()))
-    proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-        capture_output=True, text=True)
+    proc = subprocess.run([compiler, *flags, str(src), "-o", str(tmp),
+                           *libs], capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     lib.with_suffix(".log").write_text(log)
     if proc.returncode != 0:
-        raise RuntimeError("nvcc failed on {}:\n{}".format(src, log))
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError("{} failed on {} (exit {}):\n{}".format(
+            compiler, src, proc.returncode, log))
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     return lib
 

@@ -9,9 +9,13 @@ with the layout of the reference (scdx16p100.py:66-90):
     locs/<name>.npy            (K, 8) float [ctX, ctY, offX, offY,
                                              majX, majY, minL, halo]
 
-The npy payloads are parsed straight out of the zip into one contiguous
-array. The JAX package's native C++ reader is not carried over; this is
-its numpy path.
+Reading parses the npy payloads straight out of the zip into one
+contiguous array, by one of two readers: ``"native"`` (the default), the
+port's host library (``csrc/scdio.cpp`` through ``data/native_io``:
+the zip memory-mapped, the payloads inflated by worker threads, ZIP64
+archives read), or ``"numpy"``, the plain version (``zipfile`` and
+``np.load``, one entry at a time). Both give the same arrays to the bit;
+neither falls back to the other.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from __future__ import annotations
 import io
 import json
 import zipfile
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -59,12 +63,25 @@ class ArchiveWriter:
         self.close()
 
 
-def read_archive(path: str
+READERS = ("native", "numpy")
+
+
+def read_archive(path: str, reader: str = "native",
+                 threads: Optional[int] = None
                  ) -> Tuple[List[str], np.ndarray, np.ndarray, np.ndarray]:
     """Load a `.d` archive into packed host arrays: ``(names, samples
     (N, H, W) float32, locs (N, MAXTAGLEN, 8) float32, counts (N,)
     int32)``. Objects beyond MAXTAGLEN are dropped (the reference's
-    fixed-length packing, scdx16p100.py:346-351)."""
+    fixed-length packing, scdx16p100.py:346-351). ``reader``: ``"native"``
+    (on ``threads`` threads, ``data/native_io.read_archive_native``) or
+    ``"numpy"``."""
+    if reader == "native":
+        from scd_resnet_tpu_torch.data.native_io import read_archive_native
+
+        return read_archive_native(path, threads)
+    if reader != "numpy":
+        raise ValueError("reader must be one of {}, not {!r}".format(
+            READERS, reader))
     with zipfile.ZipFile(path) as zf:
         names = json.loads(zf.read("dataset.json"))["names"]
         samples = []

@@ -14,16 +14,23 @@ datasets/scds/scdx16p100.py), on one card:
   381-414);
 - each epoch's shuffle is keyed by (seed, epoch), so a resumed run sees
   the epochs it would have seen (the JAX package's keys, so its
-  single-device order and this one agree).
+  single-device order and this one agree);
+- an epoch splits over ``shard_count`` nodes as the JAX dataset splits
+  it over hosts: node n reads ``order[n::shard_count]``, and every node
+  takes as many batches as the smallest shard yields.
 
-Samples live in one host array of the storage dtype; augmentation and
-the label render run on the device per batch (``data/pipeline.py``).
+The archive is read by the host library's threaded reader
+(``data/native_io``). Samples live in one host array of the storage
+dtype; a float32 batch is packed by the host library's memcpy, the
+others by ``np.take``. Augmentation and the label render run on the
+device per batch (``data/pipeline.py``).
 """
 
 from __future__ import annotations
 
 import json
 import re
+import time
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -31,6 +38,7 @@ import torch
 
 from scd_resnet_tpu_torch.core.logging import Logger
 from scd_resnet_tpu_torch.data.archive import read_archive
+from scd_resnet_tpu_torch.data.native_io import gather_batch, reader_threads
 from scd_resnet_tpu_torch.data.pipeline import augment_and_render_batch
 
 _NAME_RE = re.compile(r"^(?P<img>.+?)\.(?P<rep>\d+)\.(?P<clip>\d+)\.npy$")
@@ -78,7 +86,13 @@ class SCDDataset:
                  storage_dtype: str = "float32",
                  device: str | torch.device = "cuda"):
         Logger.log("Loading archive {} ...".format(zip_path))
-        self.names, samples, self.locs, self.counts = read_archive(zip_path)
+        threads = reader_threads()
+        t0 = time.perf_counter()
+        self.names, samples, self.locs, self.counts = read_archive(
+            zip_path, "native", threads)
+        Logger.log("Read {} clips with the native reader on {} threads in "
+                   "{:.3f} s".format(len(self.names), threads,
+                                     time.perf_counter() - t0))
         self.samples = as_storage(samples, storage_dtype)
         self.storage_dtype = storage_dtype
         self.device = torch.device(device)
@@ -182,24 +196,45 @@ class SCDDataset:
     def __len__(self) -> int:
         return len(self.order)
 
-    def steps_per_epoch(self, batch_size: int) -> int:
-        """Batches per epoch (drop_last)."""
-        return len(self.order) // batch_size
+    def steps_per_epoch(self, batch_size: int, shard_count: int = 1) -> int:
+        """Batches per epoch on each of ``shard_count`` nodes (drop_last),
+        from the smallest node's shard, so every node agrees on the
+        epoch's length (the JAX dataset's rule: per-node lengths would let
+        nodes move on to different epochs, or one stop while the others
+        wait in a collective)."""
+        return (len(self.order) // shard_count) // batch_size
 
-    def epoch_batches(self, batch_size: int, epoch: int, skip: int = 0
+    def epoch_batches(self, batch_size: int, epoch: int, skip: int = 0,
+                      shard_count: int = 1, shard_index: int = 0,
+                      rows: Optional[slice] = None
                       ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
-        """One epoch of host (samples, locs, counts) batches in the
-        (seed, epoch)-keyed order, starting ``skip`` batches in. On a data
-        axis every rank reads the global batch and trains its own rows
-        (``parallel/mesh.shard_rows``)."""
+        """One epoch of host (samples, locs, counts) batches of node
+        ``shard_index`` of ``shard_count``: its shard ``order[shard_index::
+        shard_count]`` of the (seed, epoch)-keyed order (the JAX dataset's
+        ``epoch_batches``), :meth:`steps_per_epoch` batches, starting
+        ``skip`` batches in. ``rows`` packs only those rows of each batch
+        (a rank's block on a data axis: the same values, without the
+        rows it would drop)."""
         rng = np.random.default_rng((self._seed, 7919, int(epoch)))
         order = np.asarray(self.order)
-        order = order[rng.permutation(len(order))]
+        order = order[rng.permutation(len(order))][shard_index::shard_count]
         for start in range(skip * batch_size,
-                           self.steps_per_epoch(batch_size) * batch_size,
-                           batch_size):
+                           self.steps_per_epoch(batch_size, shard_count)
+                           * batch_size, batch_size):
             idx = order[start:start + batch_size]
-            yield self.samples[idx], self.locs[idx], self.counts[idx]
+            if rows is not None:
+                idx = idx[rows]
+            yield self.pack(idx)
+
+    def pack(self, idx: np.ndarray
+             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The (samples, locs, counts) of rows ``idx``: float32 samples
+        packed by the host library, other storage by ``np.take``."""
+        if self.samples.dtype == np.float32:
+            samples = gather_batch(self.samples, idx)
+        else:
+            samples = np.take(self.samples, idx, axis=0)
+        return samples, self.locs[idx], self.counts[idx]
 
     def device_shards(self, num_shards: int):
         """The training rows split over ``num_shards`` data ranks for

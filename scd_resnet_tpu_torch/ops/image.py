@@ -28,7 +28,21 @@ def grayscale_preprocess(rgb: np.ndarray) -> np.ndarray:
 
 def grayscale_inference_u8(rgb: np.ndarray) -> np.ndarray:
     """Inference grayscale of an (..., 3) RGB array as uint8 (the rounded
-    formula's range is [0, 255]; numpy rounds half to even)."""
+    formula's range is [0, 255]; numpy rounds half to even). uint8 RGB
+    takes the host library's single pass (``data/native_io.grayscale_u8``,
+    bit-equal to :func:`grayscale_inference_u8_plain`); anything else
+    takes the plain version."""
+    rgb = np.asarray(rgb)
+    if rgb.dtype == np.uint8 and rgb.ndim >= 2 and rgb.shape[-1] == 3:
+        from scd_resnet_tpu_torch.data.native_io import grayscale_u8
+
+        return grayscale_u8(rgb)
+    return grayscale_inference_u8_plain(rgb)
+
+
+def grayscale_inference_u8_plain(rgb: np.ndarray) -> np.ndarray:
+    """The inference grayscale in numpy: float64 products summed left to
+    right, rounded, cast to uint8."""
     rgb = np.asarray(rgb)
     gray = np.round(0.1140 * rgb[..., 0] + 0.5870 * rgb[..., 1]
                     + 0.2989 * rgb[..., 2])

@@ -78,6 +78,29 @@ def init_distributed(device: str | torch.device = "cuda",
     return rank, world, local_rank
 
 
+def node_layout() -> Tuple[int, int]:
+    """``(nodes, node_index)`` of this process: torchrun's ``WORLD_SIZE``
+    ranks in nodes of ``LOCAL_WORLD_SIZE``, this one on node
+    ``GROUP_RANK``; ``(1, 0)`` without torchrun. A node is the port's
+    counterpart of a JAX host: its ranks share one shard of each epoch
+    (``data/dataset.epoch_batches``). Raises when the world does not
+    divide into equal nodes or the node index is outside them."""
+    if "WORLD_SIZE" not in os.environ:
+        return 1, 0
+    world = int(os.environ["WORLD_SIZE"])
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if local < 1 or world % local:
+        raise ValueError(
+            "WORLD_SIZE {} does not divide into nodes of LOCAL_WORLD_SIZE {} "
+            "ranks: every node must run as many ranks".format(world, local))
+    nodes = world // local
+    index = int(os.environ.get("GROUP_RANK", 0))
+    if not 0 <= index < nodes:
+        raise ValueError("GROUP_RANK {} is outside the {} nodes of {} ranks "
+                         "each".format(index, nodes, local))
+    return nodes, index
+
+
 # what the port made from the current default group: the axis lines by
 # (axis names, shape), the host group, and the timeout they all take
 _GROUPS: Dict[str, object] = {}

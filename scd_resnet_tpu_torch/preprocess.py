@@ -30,6 +30,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from scd_resnet_tpu_torch.core.compile_cache import enable_compilation_cache
 from scd_resnet_tpu_torch.core.device import resolve_device
 from scd_resnet_tpu_torch.core.logging import Logger
 
@@ -77,6 +78,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     """Write the archive the command line asks for; returns the summary
     it prints."""
     args = parse_args(argv)
+    enable_compilation_cache()
     device = resolve_device(args.device)
     Logger.info(":: preprocess :: generate samples from whole slide images "
                 "on {} ::".format(device))

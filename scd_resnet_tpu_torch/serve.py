@@ -84,9 +84,13 @@ def build_service(args: argparse.Namespace):
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
+    from scd_resnet_tpu_torch.core.compile_cache import (
+        enable_compilation_cache,
+    )
     from scd_resnet_tpu_torch.infer.server import create_server
 
     args = parse_args(argv)
+    enable_compilation_cache()
     service = build_service(args)
     server = create_server(service, args.host, args.port)
     print(":: serve :: listening on http://{}:{}".format(

@@ -16,8 +16,10 @@ that many clips, with the same detections; ``--mesh`` (with ``-c``)
 shards each slide's clips over every visible CUDA device. It writes (``-o``) or prints
 ``{"detections": [{"image", <the contract's fields>}...], "contract",
 "images"}``, and with ``--fit`` (the centerOffset contract only) the
-two-Gaussian fit of the Rhr histogram as ``gauss2``. It runs on CUDA
-unless ``--device cpu``.
+two-Gaussian fit of the Rhr histogram as ``gauss2``: a fit that does
+not converge is written as ``null``, its reason as ``gauss2_error``, and
+the detections are kept (the root ``test.py`` stops at scipy's error and
+writes nothing). It runs on CUDA unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -67,6 +69,9 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     """Run the CLI on ``argv``; returns the result it writes."""
+    from scd_resnet_tpu_torch.core.compile_cache import (
+        enable_compilation_cache,
+    )
     from scd_resnet_tpu_torch.core.device import (
         reproducible_float32,
         visible_cards,
@@ -110,6 +115,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         # or the bundle's meta.json
         parser.error("--fit needs the Rhr row, which only the centerOffset "
                      "contract carries (got '{}')".format(contract))
+    enable_compilation_cache()
     reproducible_float32()
 
     if args.checkpoint:
@@ -169,10 +175,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     result = {"detections": register, "contract": contract,
               "images": list(args.images)}
     if args.fit and register:
-        popt = fit_rhr([d["rhr"] for d in register])
-        result["gauss2"] = dict(zip(("a1", "m1", "s1", "a2", "m2", "s2"),
-                                    map(float, popt)))
-        Logger.info(":: test :: gauss2 fit: {}".format(result["gauss2"]))
+        try:
+            popt = fit_rhr([d["rhr"] for d in register])
+        except RuntimeError as err:  # scipy's curve_fit did not converge
+            result.update(gauss2=None, gauss2_error=str(err))
+            Logger.warn(":: test :: no gauss2 fit: {}".format(err))
+        else:
+            result["gauss2"] = dict(zip(("a1", "m1", "s1", "a2", "m2",
+                                         "s2"), map(float, popt)))
+            Logger.info(":: test :: gauss2 fit: {}".format(
+                result["gauss2"]))
     if args.output:
         with open(args.output, "w") as f:
             json.dump(result, f, indent=2)

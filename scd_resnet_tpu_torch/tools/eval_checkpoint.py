@@ -20,6 +20,7 @@ import argparse
 import os
 from typing import List, Optional
 
+from scd_resnet_tpu_torch.core.compile_cache import enable_compilation_cache
 from scd_resnet_tpu_torch.core.config import Configuration
 from scd_resnet_tpu_torch.core.device import training_backends
 from scd_resnet_tpu_torch.core.logging import Logger
@@ -43,6 +44,7 @@ def main(argv: Optional[List[str]] = None) -> str:
     if not os.path.exists(args.checkpoint):
         parser.error("checkpoint does not exist: {}".format(args.checkpoint))
 
+    enable_compilation_cache()
     cfg = Configuration.from_json(args.config)
     with training_backends(cfg.config.get("precision", "float32")):
         factory = NetworkFactory(cfg, device=args.device)

@@ -47,6 +47,8 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from scd_resnet_tpu_torch.core.compile_cache import enable_compilation_cache
+
 REPO = Path(__file__).resolve().parents[2]
 SLIDE_SIZE = (1200, 800)  # width, height of every generated slide
 CLIP = 512  # the archive's clip side
@@ -321,6 +323,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     """Run the stages the command line names; returns ``stages.json``'s
     record."""
     args = parse_args(argv)
+    enable_compilation_cache()
     os.makedirs(args.root, exist_ok=True)
     record_path = _path(args, "stages.json")
     record: Dict[str, Any] = {}

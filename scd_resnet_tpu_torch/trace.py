@@ -56,10 +56,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
+    from scd_resnet_tpu_torch.core.compile_cache import (
+        enable_compilation_cache,
+    )
     from scd_resnet_tpu_torch.core.device import reproducible_float32
     from scd_resnet_tpu_torch.infer.wrapper import load_wrapper, save_traced
 
     args = parse_args(argv)
+    enable_compilation_cache()
     reproducible_float32()
     wrapper = load_wrapper(args.model, args.arch, args.device)
     out = wrapper(torch.zeros(args.shape, device=wrapper.device))

@@ -36,6 +36,7 @@ import os
 from pprint import pprint
 from typing import Any, Dict, List, Optional
 
+from scd_resnet_tpu_torch.core.compile_cache import enable_compilation_cache
 from scd_resnet_tpu_torch.core.config import Configuration
 from scd_resnet_tpu_torch.core.device import training_backends
 from scd_resnet_tpu_torch.core.logging import Logger
@@ -66,6 +67,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     from scd_resnet_tpu_torch.train.factory import NetworkFactory
 
     args = parse_args(argv)
+    enable_compilation_cache()
     init_distributed(args.device, args.backend)
     config = Configuration.from_json(args.configuration)
     if args.debug:

@@ -54,7 +54,12 @@ trainer's ``factory.py:177-277``), for ranks started by ``torchrun``:
   a placement decision, not a numerics one: BatchNorm takes the global
   batch's moments, the losses its counts, and the gradients are summed
   over the data group in buckets. A resident dataset holds shard d's rows
-  on rank d (``data/dataset.device_shards``). Without ``meshShape`` under
+  on rank d (``data/dataset.device_shards``). Streamed from the host, a
+  rank packs only its block of the batch; on N torchrun nodes
+  (``parallel/mesh.node_layout``) node n reads ``order[n::N]`` of each
+  epoch, the JAX trainer's per-host split, and each rank takes its block
+  of its node's batch, as a JAX device takes its block of its host's.
+  Without ``meshShape`` under
   ``torchrun`` the data axis is the world size; a batch it does not
   divide raises, since a rank cannot sit idle the way a spare JAX device
   does;
@@ -125,6 +130,7 @@ from scd_resnet_tpu_torch.parallel.mesh import (
     host_group,
     local_checkpoint_state,
     mesh_from_config,
+    node_layout,
     resolve_axes,
     shard_model,
     shard_rows,
@@ -470,6 +476,12 @@ class NetworkFactory:
         if self.mesh is not None:
             samples, locs, counts = (shard_rows(self.mesh, a)
                                      for a in (samples, locs, counts))
+        return self.train_rows(samples, locs, counts, draws)
+
+    def train_rows(self, samples, locs, counts,
+                   draws: Optional[Draws] = None):
+        """One step on this rank's rows of the global batch (all of it
+        without a data axis)."""
         return self._step(*(torch.as_tensor(a).to(self.device)
                             for a in (samples, locs, counts)), draws)
 
@@ -672,6 +684,32 @@ class NetworkFactory:
         it = cfg.currentIteration
         self._aug_step = int(it)
         total = cfg.totalIterations
+        # streamed from the host, node n of N reads order[n::N] of each
+        # epoch (the JAX trainer's per-host split) and each rank packs its
+        # block of its node's batch; one node reads the whole order
+        nodes, node = (1, 0) if self.resident else node_layout()
+        if self.resident:
+            steps_per_epoch = self.dataset.steps_per_epoch_resident(
+                cfg.batchSize, self._data_size, self._local_train)
+        else:
+            steps_per_epoch = self.dataset.steps_per_epoch(cfg.batchSize,
+                                                           nodes)
+            if nodes > 1:
+                Logger.log("Epoch split over {} nodes: node {} reads "
+                           "{} of {} training rows".format(
+                               nodes, node, len(self.dataset.order[
+                                   node::nodes]), len(self.dataset)))
+        if steps_per_epoch == 0:
+            raise RuntimeError(
+                "this node's dataset shard ({} of {} rows over {} node(s)) "
+                "yields no batches of size {}".format(
+                    len(self.dataset.order[node::nodes]), len(self.dataset),
+                    nodes, cfg.batchSize))
+        epoch, skip = divmod(it, steps_per_epoch)
+        per_rank = cfg.batchSize // self._data_size  # the mesh checked it
+        rows = slice(self._data_index * per_rank,
+                     (self._data_index + 1) * per_rank)
+
         loss_rows: List[Tuple[int, torch.Tensor]] = []
         eval_lines = ["Experiment: {}\n".format(cfg.trainName),
                       "Parameter Count: {}\n".format(self.parameter_count)]
@@ -707,15 +745,6 @@ class NetworkFactory:
                            rows, delimiter=",", fmt="%.5f")
                 loss_rows = []
 
-        steps_per_epoch = self.dataset.steps_per_epoch_resident(
-            cfg.batchSize, self._data_size, self._local_train) \
-            if self.resident else self.dataset.steps_per_epoch(cfg.batchSize)
-        if steps_per_epoch == 0:
-            raise RuntimeError("the dataset's {} training rows yield no "
-                               "batch of {}".format(len(self.dataset),
-                                                    cfg.batchSize))
-        epoch, skip = divmod(it, steps_per_epoch)
-
         def batches(epoch: int, skip: int):
             """(step function, its arguments) for one epoch."""
             if self.resident:
@@ -726,8 +755,8 @@ class NetworkFactory:
                     yield self.train_resident, (idx,)
             else:
                 for batch in self.dataset.epoch_batches(
-                        cfg.batchSize, epoch, skip):
-                    yield self.train, batch
+                        cfg.batchSize, epoch, skip, nodes, node, rows):
+                    yield self.train_rows, batch
 
         finished = it >= total
         try:

@@ -139,3 +139,20 @@ def test_trace_then_test_m_from_a_jax_checkpoint(tmp_path, slide_png,
         [[slide_png, *d] for d in device] * 2
 
 
+def test_a_fit_that_does_not_converge_keeps_the_detections(
+        tmp_path, slide_png, jax_checkpoint, monkeypatch):
+    """scipy's curve_fit raising (no convergence within its evaluations)
+    leaves ``gauss2`` null with its reason; the detections are written."""
+    def no_fit(rhrs):
+        raise RuntimeError("Optimal parameters not found: planted")
+
+    monkeypatch.setattr(analyse, "fit_rhr", no_fit)
+    arch = FAMILIES["centerOffset"][1]
+    out = str(tmp_path / "c.json")
+    result = test_cli.main([slide_png, "-c", jax_checkpoint, "-a", arch,
+                            "--device", "cpu", "--fit", "-o", out])
+    assert json.load(open(out)) == json.loads(json.dumps(result))
+    assert result["gauss2"] is None and "planted" in result["gauss2_error"]
+    assert result["detections"]
+
+

@@ -6,7 +6,9 @@ and subprocesses that block ``jax``, ``flax``, ``optax`` and
 (``trace``, ``test``, the msgpack reader, the parallel layer and the
 tools of ``scd_resnet_tpu_torch/tools`` among its modules), serve a
 clip, preprocess a small slide through ``python -m
-scd_resnet_tpu_torch.preprocess``, build ``DCNPooling``, score fixture
+scd_resnet_tpu_torch.preprocess`` and read it back through the host
+library (with its build cache, packer and grayscale), build
+``DCNPooling``, score fixture
 detections with ``tools/f1_eval`` and the F1 pipeline's eval stage, and
 train
 through ``python -m scd_resnet_tpu_torch.train`` (the legacy CornerNet
@@ -159,6 +161,7 @@ SERVE_BLOCKED = BLOCK + textwrap.dedent("""
 
     # the preprocessing CLI on a small slide, and DCNPooling
     import contextlib, io, json, os, runpy, tempfile, zipfile
+    REPO = os.getcwd()
     from scd_resnet_tpu_torch.data.synthetic import make_slide_and_annotation
     from scd_resnet_tpu_torch.models.deformable import DCNPooling
     root = tempfile.mkdtemp()
@@ -171,6 +174,16 @@ SERVE_BLOCKED = BLOCK + textwrap.dedent("""
         runpy.run_module("scd_resnet_tpu_torch.preprocess",
                          run_name="__main__")
     assert len(zipfile.ZipFile(root + "/out.d").namelist()) == 2 * 128 + 2
+    # the host input layer: its build cache, reader, packer and grayscale
+    from scd_resnet_tpu_torch.core import compile_cache
+    from scd_resnet_tpu_torch.data import native_io
+    from scd_resnet_tpu_torch.data.archive import read_archive
+    from scd_resnet_tpu_torch.ops.image import grayscale_inference_u8
+    assert compile_cache.enable_compilation_cache().startswith(REPO)
+    names, clips, _, _ = read_archive(root + "/out.d")
+    assert len(names) == 128 and np.array_equal(
+        native_io.gather_batch(clips, np.arange(3)), clips[:3])
+    assert grayscale_inference_u8(np.zeros((2, 2, 3), np.uint8)).sum() == 0
     pooled = DCNPooling(2, pooled_size=3, group_size=3, deform_fc_dim=8)(
         torch.randn(1, 18, 16, 16), torch.tensor([[0.0, 4, 4, 40, 50]]))
     assert pooled.shape == (1, 2, 3, 3)

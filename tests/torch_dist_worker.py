@@ -2,15 +2,19 @@
 
 ``run_ranks(world, jobs, work)`` starts ``world`` copies of this file
 with the environment ``torchrun`` sets (``RANK``, ``WORLD_SIZE``,
-``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), waits for them with a
-timeout and returns rank 0's results. Each rank joins the process group
-through the train entry point's ``init_distributed`` and runs every job
+``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, ``GROUP_RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``; the ranks on ``nodes`` nodes of equal size, one node by
+default), waits for them with a timeout and returns rank 0's results
+(with ``every_rank``, every rank's, in rank order). Each rank joins the
+process group through the train entry point's ``init_distributed`` and
+runs every job
 of ``jobs`` in turn: it builds a ``NetworkFactory`` on the CPU from the
 job's settings and archive, loads the job's state dict if any, then
 either takes the job's steps (global host batches or global resident
 index vectors, with the global batch's draws) or runs
 ``begin_training`` (with ``stop_rank``, that rank asks to stop before
-the first step). Rank 0 records the losses, the first step's
+the first step; with ``record_rows``, each rank records the host rows
+it trains at each step). Rank 0 records the losses, the first step's
 gradients, the state after the first step and the final state, in the
 plain layout (model-axis shards gathered). With ``again``, each rank
 then builds a second factory of the same settings and rank 0 records
@@ -42,24 +46,30 @@ def free_port() -> int:
 
 def run_ranks(world: int, jobs, work: str,
               collective_timeout_s: float = COLLECTIVE_TIMEOUT_S,
-              timeout_s: float = TIMEOUT_S):
-    """Run ``jobs`` on ``world`` gloo ranks whose collectives fail after
-    ``collective_timeout_s``; rank 0's results by job name. A rank that
-    fails or outlives ``timeout_s`` fails the call."""
+              timeout_s: float = TIMEOUT_S, nodes: int = 1,
+              every_rank: bool = False):
+    """Run ``jobs`` on ``world`` gloo ranks, ``world / nodes`` a node,
+    whose collectives fail after ``collective_timeout_s``; rank 0's
+    results by job name (``every_rank``: a list of every rank's). A rank
+    that fails or outlives ``timeout_s`` fails the call."""
     import torch
 
     os.makedirs(work, exist_ok=True)
     spec = os.path.join(work, "jobs.pt")
-    torch.save({"jobs": jobs, "timeout_s": collective_timeout_s}, spec)
+    torch.save({"jobs": jobs, "timeout_s": collective_timeout_s,
+                "every_rank": every_rank}, spec)
+    local = world // nodes
     env = dict(os.environ, WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
-               MASTER_PORT=str(free_port()), OMP_NUM_THREADS="1",
+               LOCAL_WORLD_SIZE=str(local), MASTER_PORT=str(free_port()),
+               OMP_NUM_THREADS="1",
                PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
     procs = []
     for rank in range(world):
         log = open(os.path.join(work, "rank{}.log".format(rank)), "w")
         procs.append((subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), spec, work],
-            env=dict(env, RANK=str(rank), LOCAL_RANK=str(rank)),
+            env=dict(env, RANK=str(rank), LOCAL_RANK=str(rank % local),
+                     GROUP_RANK=str(rank // local)),
             stdout=log, stderr=subprocess.STDOUT), log))
     failed = []
     deadline = time.monotonic() + timeout_s
@@ -84,7 +94,10 @@ def run_ranks(world: int, jobs, work: str,
                 tails.append("rank {}:\n{}".format(rank, f.read()[-3000:]))
         raise RuntimeError("ranks {} failed:\n{}".format(failed,
                                                          "\n".join(tails)))
-    return torch.load(os.path.join(work, "results.pt"), weights_only=False)
+    if every_rank:
+        return [torch.load(os.path.join(work, "results{}.pt".format(rank)),
+                           weights_only=False) for rank in range(world)]
+    return torch.load(os.path.join(work, "results0.pt"), weights_only=False)
 
 
 def _skip_all_reduce(job, rank: int, work: str):
@@ -163,6 +176,15 @@ def _run_job(job, rank: int):
                         and again.data_group is factory.data_group,
                         "same_host_group": again._host_group is not None
                         and again._host_group is factory._host_group}
+    if job.get("record_rows"):
+        train_rows = factory.train_rows
+        out["rows"] = []
+
+        def recording(samples, locs, counts, draws=None):
+            out["rows"].append((samples.copy(), locs.copy(), counts.copy()))
+            return train_rows(samples, locs, counts, draws)
+
+        factory.train_rows = recording
     if job.get("begin_training"):
         if job.get("stop_rank") == rank:
             factory.request_stop()
@@ -203,8 +225,8 @@ def main(spec: str, work: str) -> None:
     results = {job["name"]: _skip_all_reduce(job, rank, work)
                if job.get("kind") == "skip" else _run_job(job, rank)
                for job in spec["jobs"]}
-    if rank == 0:
-        torch.save(results, os.path.join(work, "results.pt"))
+    if rank == 0 or spec["every_rank"]:
+        torch.save(results, os.path.join(work, "results{}.pt".format(rank)))
     torch.distributed.destroy_process_group()
 
 
