@@ -376,25 +376,25 @@ from scd_resnet_tpu_torch.parallel.pipeline import (
     pipeline_apply,
     sequential_apply,
 )
-from scd_resnet_tpu_torch.profile_kernels import device_kernels
-from scd_resnet_tpu_torch.profile_serve import device_ms
-from scd_resnet_tpu_torch.profile_train import (
-    CENTERSIZE_FULL,
-    CPOOL_BEST,
-    DCN_FULL,
-    EXP74,
-    HOURGLASS2_BEST,
-    LEGACY_FULL,
-    RENDER_KERNEL,
-    SYNTHETIC_ARCHIVE,
-    settings,
-)
+from scd_resnet_tpu_torch.profile_kernels import device_kernels, device_ms
 from scd_resnet_tpu_torch.tools import f1_pipeline
 from scd_resnet_tpu_torch.train import __main__ as train_cli
 from scd_resnet_tpu_torch.train.factory import NetworkFactory, parse_metric_line
 from scd_resnet_tpu_torch.train.registry import get_model_profile
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+EXP74 = os.path.join(REPO, "configs", "exp74.json")
+CPOOL_BEST = os.path.join(REPO, "configs", "cpool_best.json")
+DCN_FULL = os.path.join(REPO, "configs", "dcn_full.json")
+HOURGLASS2_BEST = os.path.join(REPO, "configs", "hourglass2_best.json")
+LEGACY_FULL = os.path.join(REPO, "configs", "legacy_full.json")
+CENTERSIZE_FULL = os.path.join(REPO, "configs", "centersize_full.json")
+# the synthetic stand-in for the scdx16p100 archive of the configurations
+# (``make_archive``'s arguments): 2 x 128 clips of 512^2, half of them
+# validation
+SYNTHETIC_ARCHIVE = {"num_images": 2, "reps": 1, "clips_per_image": 128,
+                     "size": 512, "seed": 74}
+RENDER_KERNEL = "render_heatmaps_kernel"
 SLIDE_W, SLIDE_H = 3092, 2056
 POOL_SHAPE = (48, 128, 128, 128)  # what the served corner heads pool
 POOL_TRAIN_SHAPE = (32, 128, 128, 128)  # what cpool_best's heads pool
@@ -462,6 +462,16 @@ def log(msg: str) -> None:
 def run(cmd) -> str:
     return subprocess.run(cmd, check=True, capture_output=True,
                           text=True).stdout.strip()
+
+
+def settings(config: str, data_dir: str, work: str, **overrides) -> dict:
+    """The configuration file ``config`` with its archive in ``data_dir``,
+    its outputs under ``work`` and ``overrides`` on top."""
+    with open(config) as f:
+        values = json.load(f)
+    values.update(dirDataset=data_dir + "/", dirTemp=work + "/temp/",
+                  dirResult=work + "/results/", **overrides)
+    return values
 
 
 # -- 2. the kernel against its plain version --------------------------------

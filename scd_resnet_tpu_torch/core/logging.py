@@ -101,22 +101,33 @@ class StepTelemetry:
     """Append-only JSONL telemetry of training steps.
 
     The reference only shows a live tqdm loss bar (networkFactory.py:159-162);
-    here every step can additionally be recorded as one JSON line with wall
-    time, so throughput regressions are diagnosable after the fact.
+    here every ``every``-th step is recorded as one JSON line, so throughput
+    regressions are diagnosable after the fact: the caller's payload, the
+    ``step``, ``t`` (wall seconds since the telemetry began) and ``ips``,
+    the steps a second since the previous row (the first row's since the
+    telemetry began at ``first_step``), so that only the first row holds
+    warm-up and autotuning.
     """
 
-    def __init__(self, path: Optional[str] = None, every: int = 50) -> None:
+    def __init__(self, path: Optional[str] = None, every: int = 50,
+                 first_step: int = 0) -> None:
         self.path = path
         self.every = max(1, every)
         self._fh = open(path, "a") if path else None
         self._t0 = time.perf_counter()
+        self._last = (first_step, self._t0)
 
-    def record(self, step: int, payload: Dict[str, Any]) -> None:
+    def record(self, step: int,
+               payload: Optional[Dict[str, Any]] = None) -> None:
         if self._fh is None or step % self.every != 0:
             return
-        payload = dict(payload)
+        now = time.perf_counter()
+        last_step, last_t = self._last
+        self._last = (step, now)
+        payload = dict(payload or {})
         payload["step"] = step
-        payload["t"] = round(time.perf_counter() - self._t0, 4)
+        payload["t"] = round(now - self._t0, 4)
+        payload["ips"] = (step - last_step) / (now - last_t)
         self._fh.write(json.dumps(payload) + "\n")
         self._fh.flush()
 

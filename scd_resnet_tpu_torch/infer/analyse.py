@@ -31,7 +31,13 @@ test.py:41-183). The device-fused serving path
   rows back;
 - ``mesh`` (a list of devices, the ``data`` axis) shards the slide's
   clips over the devices, one model copy on each distinct device, as the
-  JAX analyzer shards them over its mesh.
+  JAX analyzer shards them over its mesh;
+- under a profiler each phase is a span (``core/profiling.span``):
+  ``scd.analyse.upload`` (uint8 coercion, pinning, the non-blocking copy;
+  a band's cut from the slide too), ``scd.analyse.tile`` (the device
+  tiler; a mesh's shard padding and copies), ``scd.analyse.forward``
+  (model and decode, enqueued), ``scd.analyse.readback`` (the host waits
+  for the rows) and ``scd.analyse.stitch`` (stitch, Rhr, dedupe).
 
 The host-tiled path (:func:`analyse_grayscale`, :func:`analyse_images`)
 is the JAX package's in numpy: the clips are cut and standardised on the
@@ -51,6 +57,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from scd_resnet_tpu_torch.core.profiling import span
 from scd_resnet_tpu_torch.infer.wrapper import make_wrapper
 from scd_resnet_tpu_torch.ops.image import (
     grayscale_inference_u8,
@@ -506,9 +513,9 @@ def make_device_analyzer(wrapper: Callable, width: int, height: int,
     HBM3 (700 W) cuDNN's heuristics pick, for a float32 batch of 6, 12,
     20 or 35 clips, other algorithms for the heads' 3x3 convolutions,
     which sum in another order and are slower (``cornerCPoolRes10``: 12
-    clips took 2374 ms where 24 took 257 ms, ``profile_serve.py``; 6
-    clips 1772 ms, padded 258 ms; 35 clips 2304 ms, and rows other than
-    two padded shards', ``chip_smoke.py`` phase 11 (e)); in multiples of
+    clips took 2374 ms where 24 took 257 ms; 6 clips 1772 ms, padded 258
+    ms; 35 clips 2304 ms, and rows other than two padded shards',
+    ``chip_smoke.py`` phase 11 (e)); in multiples of
     24 a clip's rows are those of any other multiple, so a slide gets the
     same detections whole, in bands, over a mesh and through the
     host-tiled path.
@@ -561,18 +568,27 @@ def make_device_analyzer(wrapper: Callable, width: int, height: int,
         rows = model(clips)
         return rows[:n] if batch_axis == 0 else rows[:, :n]
 
+    def readback(rows) -> np.ndarray:
+        """Device rows (a mesh's shards: concatenated and cut to the
+        slide) on the host."""
+        with span("scd.analyse.readback"):
+            if isinstance(rows, list):
+                rows = np.concatenate([r.cpu().numpy() for r in rows],
+                                      axis=batch_axis)
+                return rows[:n_clips] if batch_axis == 0 \
+                    else rows[:, :n_clips]
+            return rows.cpu().numpy()
+
     def finish(inflight) -> List[List[float]]:
         rows = inflight[0]
-        if isinstance(rows, list):  # a mesh's shards, cut to the slide
-            rows = np.concatenate([r.cpu().numpy() for r in rows],
-                                  axis=batch_axis)
-            rows = rows[:n_clips] if batch_axis == 0 else rows[:, :n_clips]
-        if isinstance(rows, torch.Tensor):
-            rows = rows.cpu().numpy()
-        detections = stitch_any(rows, contract, clip_h, clip_v, pad_lr,
-                                pad_tb, bounds)
-        if dedupe_radius is not None:
-            detections = dedupe_contract(detections, dedupe_radius, contract)
+        if not isinstance(rows, np.ndarray):
+            rows = readback(rows)
+        with span("scd.analyse.stitch"):
+            detections = stitch_any(rows, contract, clip_h, clip_v, pad_lr,
+                                    pad_tb, bounds)
+            if dedupe_radius is not None:
+                detections = dedupe_contract(detections, dedupe_radius,
+                                             contract)
         return detections
 
     if streaming:
@@ -583,15 +599,18 @@ def make_device_analyzer(wrapper: Callable, width: int, height: int,
             parts: List[np.ndarray] = []
             pending = None
             for x0, n_cols in bands:
-                host, band = upload(extract_padded_band(gray, x0, n_cols,
-                                                        pad_lr, pad_tb))
+                with span("scd.analyse.upload"):
+                    host, band = upload(extract_padded_band(
+                        gray, x0, n_cols, pad_lr, pad_tb))
                 with torch.inference_mode():
-                    rows = padded_rows(wrapper, _cut_clips(band, n_cols,
-                                                           clip_v))
+                    with span("scd.analyse.tile"):
+                        clips = _cut_clips(band, n_cols, clip_v)
+                    with span("scd.analyse.forward"):
+                        rows = padded_rows(wrapper, clips)
                 if pending is not None:
-                    parts.append(pending[0].cpu().numpy())
+                    parts.append(readback(pending[0]))
                 pending = (rows, host, band)
-            parts.append(pending[0].cpu().numpy())
+            parts.append(readback(pending[0]))
             return (np.concatenate(parts, axis=batch_axis),)
 
         def many(grays) -> List[List[List[float]]]:
@@ -608,27 +627,34 @@ def make_device_analyzer(wrapper: Callable, width: int, height: int,
         per = -(-n_clips // len(devices))  # clips a shard, padded
 
         def dispatch(gray: np.ndarray):
-            host, gray_dev = upload(coerce_gray_u8(gray), devices[0])
+            with span("scd.analyse.upload"):
+                host, gray_dev = upload(coerce_gray_u8(gray), devices[0])
             with torch.inference_mode():
-                clips = tiler(gray_dev)
-                shards = []
-                for i, dev in enumerate(devices):
-                    shard = clips[i * per:(i + 1) * per]
-                    if shard.shape[0] < per:  # blank clips to the shard size
-                        shard = torch.cat([shard, shard.new_zeros(
-                            (per - shard.shape[0], *shard.shape[1:]))])
-                    shards.append(shard.to(dev, non_blocking=True))
-                rows = [padded_rows(copies[dev], shard)
-                        for dev, shard in zip(devices, shards)]
+                with span("scd.analyse.tile"):
+                    clips = tiler(gray_dev)
+                    shards = []
+                    for i, dev in enumerate(devices):
+                        shard = clips[i * per:(i + 1) * per]
+                        if shard.shape[0] < per:  # blank clips to the size
+                            shard = torch.cat([shard, shard.new_zeros(
+                                (per - shard.shape[0], *shard.shape[1:]))])
+                        shards.append(shard.to(dev, non_blocking=True))
+                with span("scd.analyse.forward"):
+                    rows = [padded_rows(copies[dev], shard)
+                            for dev, shard in zip(devices, shards)]
             return (rows, [host, gray_dev, clips])
 
     else:
         tiler = make_device_tiler(width, height, device)
 
         def dispatch(gray: np.ndarray):
-            host, gray_u8 = upload(coerce_gray_u8(gray))
+            with span("scd.analyse.upload"):
+                host, gray_u8 = upload(coerce_gray_u8(gray))
             with torch.inference_mode():
-                return padded_rows(wrapper, tiler(gray_u8)), host, gray_u8
+                with span("scd.analyse.tile"):
+                    clips = tiler(gray_u8)
+                with span("scd.analyse.forward"):
+                    return padded_rows(wrapper, clips), host, gray_u8
 
     if not streaming:
         def many(grays) -> List[List[List[float]]]:

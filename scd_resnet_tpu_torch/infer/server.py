@@ -21,6 +21,21 @@ stitch of a request run outside it. With ``mesh`` (a list of devices),
 each slide's clips are sharded over them
 (``infer/analyse.make_device_analyzer``), and ``/healthz`` reports the
 mesh.
+
+A ``torch.profiler`` trace of a window of requests, as the trainer's of
+a window of steps (``core/profiling.StepProfiler``), counted in
+requests from 1 (``/warmup`` is not one) and taken over every thread of
+the process:
+
+    SCD_PROFILE_DIR=/tmp/trace SCD_PROFILE_START=20 SCD_PROFILE_STEPS=5 \\
+        python -m scd_resnet_tpu_torch.serve -c <ckpt> -a <arch>
+
+opens when request 20 takes the device lock and is written as
+``trace.20-24.json`` when request 25 takes it (or at ``close``, the
+daemon's shutdown: ``trace.20-<last request>.json``). It holds the
+analyzer's spans (``scd.analyse.*``), the wait for the lock
+(``scd.service.lock``) and an analyzer built for a new geometry
+(``scd.service.build``).
 """
 
 from __future__ import annotations
@@ -36,6 +51,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from scd_resnet_tpu_torch.core.profiling import StepProfiler, span
 from scd_resnet_tpu_torch.infer.analyse import (
     CONTRACT_FIELDS,
     dedupe_contract,
@@ -71,6 +87,8 @@ class InferenceService:
             "warmups": 0, "compiles": 0, "compile_seconds": 0.0,
             "busy_seconds": 0.0, "started": time.time(),
         }
+        self._begun = 0  # requests that took the device lock
+        self._profiler = StepProfiler()
 
     # -- analysis ---------------------------------------------------------
 
@@ -84,9 +102,10 @@ class InferenceService:
             self._analyzers.move_to_end(key)
             return self._analyzers[key]
         t0 = time.perf_counter()
-        analyzer = make_device_analyzer(self.wrapper, width, height,
-                                        mesh=self.mesh)
-        analyzer(np.zeros((height, width), np.uint8))
+        with span("scd.service.build"):
+            analyzer = make_device_analyzer(self.wrapper, width, height,
+                                            mesh=self.mesh)
+            analyzer(np.zeros((height, width), np.uint8))
         elapsed = time.perf_counter() - t0
         with self._stats_lock:
             self._stats["compiles"] += 1
@@ -99,15 +118,23 @@ class InferenceService:
     def analyse_gray(self, gray: np.ndarray, dedupe: Optional[float] = None):
         """Detections for a uint8-range grayscale slide."""
         height, width = gray.shape
-        with self._device_lock:
+        with span("scd.service.lock"):
+            self._device_lock.acquire()
+        try:
+            self._begun += 1
+            self._profiler.step(self._begun)
             analyzer = self._analyzer(width, height)
             t0 = time.perf_counter()
             rows = analyzer.dispatch(gray)
+        finally:
+            self._device_lock.release()
         detections = analyzer.finish(rows)
         elapsed = time.perf_counter() - t0
         radius = self._dedupe if dedupe is None else dedupe
         if radius is not None:
-            detections = dedupe_contract(detections, radius, self.contract)
+            with span("scd.analyse.stitch"):
+                detections = dedupe_contract(detections, radius,
+                                             self.contract)
         clip_h, clip_v, _, _ = slide_geometry(width, height)
         with self._stats_lock:
             self._stats["requests"] += 1
@@ -148,6 +175,11 @@ class InferenceService:
         except ValueError as exc:
             raise ClientError(str(exc)) from exc
         return self.analyse_gray(gray, dedupe=dedupe)
+
+    def close(self) -> None:
+        """Write a trace window still open (``SCD_PROFILE_*``)."""
+        with self._device_lock:
+            self._profiler.close(self._begun)
 
     def record_error(self):
         with self._stats_lock:

@@ -1,5 +1,5 @@
 """Seeded synthetic slides and seeded models for exercising the serving
-path without trained weights (``chip_smoke.py``, ``profile_serve``).
+path without trained weights (``chip_smoke.py``).
 
 ``synthetic_slide`` draws a uint8 grayscale slide: a noisy bright
 background with dark elliptic blobs about the size of sperm heads.

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from scd_resnet_tpu_torch.core.profiling import span
 from scd_resnet_tpu_torch.ops.max_pool import max_pool_3x3_s2
 from scd_resnet_tpu_torch.parallel.collectives import all_reduce_sum, block_pad
 
@@ -97,7 +98,8 @@ class BatchNorm(nn.BatchNorm2d):
     than one rank) makes the training-mode moments those of the global
     batch, as the JAX step's BatchNorm over a data-sharded batch: each
     rank's per-channel count, mean and M2 are summed over the group by
-    a differentiable all-reduce and combined in rank order, the batch is
+    a differentiable all-reduce (a ``scd.collective.bn_stats`` span under
+    a profiler) and combined in rank order, the batch is
     normalised by the global biased variance in float32, and the running
     statistics move by the global moments. Every rank must run the same
     BatchNorms in the same order, a recompute's included. Without a
@@ -132,8 +134,9 @@ class BatchNorm(nn.BatchNorm2d):
         n = xf.numel() // xf.shape[1]
         var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
         row = torch.stack([torch.full_like(mean, n), mean, var * n])
-        stats = all_reduce_sum(block_pad(row[None], dist.get_rank(group),
-                                         size, 0), group)
+        with span("scd.collective.bn_stats"):
+            stats = all_reduce_sum(block_pad(
+                row[None], dist.get_rank(group), size, 0), group)
         counts, means, m2s = stats.unbind(1)  # (ranks, C) each
         total = counts.sum(0)
         mean = (counts * means).sum(0) / total

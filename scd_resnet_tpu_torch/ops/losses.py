@@ -11,7 +11,8 @@ global batch, summed over the group without a gradient, as in the JAX
 step over a data-sharded batch: each rank's loss is its local sums over
 the global counts, so the ranks' losses and gradients sum to the global
 batch's. The embedding loss normalises per sample, so its local sum is
-already that share.
+already that share. Under a profiler each such sum is a
+``scd.collective.loss_counts`` span.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Iterator, Sequence
 
 import torch
 
+from scd_resnet_tpu_torch.core.profiling import span
 from scd_resnet_tpu_torch.parallel.collectives import reduce_sum_
 
 _COUNTS = threading.local()
@@ -43,7 +45,8 @@ def _count(total: torch.Tensor) -> torch.Tensor:
     group = getattr(_COUNTS, "group", None)
     if group is None:
         return total
-    return reduce_sum_(total.detach().clone(), group)
+    with span("scd.collective.loss_counts"):
+        return reduce_sum_(total.detach().clone(), group)
 
 
 def focal_loss(predictions: Sequence[torch.Tensor], ground_truth: torch.Tensor,

@@ -119,6 +119,21 @@ def inputs(seed: int = 5) -> Dict[str, Callable[[], object]]:
             "floor": lambda: torch.add(one, one)}
 
 
+def device_ms(fn: Callable[[], object], n: int, warmup: int = 0) -> float:
+    """Mean device time in ms of ``fn()`` over ``n`` calls, by CUDA
+    events, after ``warmup`` untimed calls."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def device_kernels(fn: Callable[[], object], calls: int) -> Dict:
     """Device ms per call of each kernel ``fn`` launches, and its
     launches per call, by ``torch.profiler`` over ``calls`` calls after

@@ -101,6 +101,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         print(":: serve :: shutting down", flush=True)
     finally:
         server.server_close()
+        service.close()
 
 
 if __name__ == "__main__":

@@ -37,7 +37,14 @@ families on one card:
   (:meth:`NetworkFactory.dump_debug_overlays`);
 - a ``torch.profiler`` trace of the step window that ``SCD_PROFILE_DIR``,
   ``SCD_PROFILE_START`` and ``SCD_PROFILE_STEPS`` name
-  (``core/profiling.StepProfiler``).
+  (``core/profiling.StepProfiler``). Under any profiler a step's phases
+  are spans (``core/profiling.span``): ``scd.step.feed`` (the batch's
+  rows to the card), ``draws``, ``transform`` (augment and render),
+  ``optimizer`` (the learning rate and ``zero_grad``; then the update),
+  ``forward``, ``loss`` and ``backward``; the loop's
+  ``scd.train.validate`` and ``scd.train.snapshot``; and on a mesh the
+  collectives, ``scd.collective.bn_stats``, ``loss_counts``,
+  ``grad_sum``, ``report`` and ``stop_flag``.
 
 Each step's draws come from a ``torch.Generator`` seeded from
 (seed + 1, step) (``data/pipeline.step_seed``), the JAX trainer's
@@ -105,7 +112,7 @@ from scd_resnet_tpu_torch.core.checkpoint import (
 from scd_resnet_tpu_torch.core.config import Configuration
 from scd_resnet_tpu_torch.core.device import resolve_device
 from scd_resnet_tpu_torch.core.logging import Logger, ProgressLine, StepTelemetry
-from scd_resnet_tpu_torch.core.profiling import StepProfiler
+from scd_resnet_tpu_torch.core.profiling import StepProfiler, span
 from scd_resnet_tpu_torch.data.dataset import SCDDataset, as_storage
 from scd_resnet_tpu_torch.data.pipeline import (
     Draws,
@@ -421,8 +428,9 @@ class NetworkFactory:
         step), summed on the host over ``self._host_group``."""
         if self.world == 1:
             return self._stop_requested
-        flag = torch.tensor([float(self._stop_requested)])
-        return bool(reduce_sum_(flag, self._host_group).item() > 0)
+        with span("scd.collective.stop_flag"):
+            flag = torch.tensor([float(self._stop_requested)])
+            return bool(reduce_sum_(flag, self._host_group).item() > 0)
 
     def request_stop(self, signum=None, frame=None) -> None:
         """Stop at the next step boundary with a full checkpoint (the
@@ -438,36 +446,44 @@ class NetworkFactory:
 
     def _step(self, samples: torch.Tensor, locs: torch.Tensor,
               counts: torch.Tensor, draws: Optional[Draws]):
-        if draws is None:
-            draws = self.draws_for_step(self._aug_step,
-                                        samples.shape[0] * self._data_size)
-        if self.mesh is not None:  # this rank's rows of the global draws
-            draws = Draws(*(shard_rows(self.mesh, d) for d in draws))
+        with span("scd.step.draws"):
+            if draws is None:
+                draws = self.draws_for_step(
+                    self._aug_step, samples.shape[0] * self._data_size)
+            if self.mesh is not None:  # this rank's rows of the global draws
+                draws = Draws(*(shard_rows(self.mesh, d) for d in draws))
         self._aug_step += 1
-        self.model.train()
-        xs, ys = augment_and_render_batch(
-            samples, locs, counts, self.heat_size, draws=draws,
-            corner_targets=self.profile.corner_targets)
-        lr = self.schedule(self.updates)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.zero_grad(set_to_none=True)
-        with torch.autocast(self.device.type, dtype=torch.bfloat16,
-                            enabled=self.autocast):
-            outs = self._forward(xs)
-        with global_counts(self.data_group):
+        with span("scd.step.transform"):
+            xs, ys = augment_and_render_batch(
+                samples, locs, counts, self.heat_size, draws=draws,
+                corner_targets=self.profile.corner_targets)
+        with span("scd.step.optimizer"):
+            lr = self.schedule(self.updates)
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+            self.optimizer.zero_grad(set_to_none=True)
+        with span("scd.step.forward"):
+            self.model.train()
+            with torch.autocast(self.device.type, dtype=torch.bfloat16,
+                                enabled=self.autocast):
+                outs = self._forward(xs)
+        with span("scd.step.loss"), global_counts(self.data_group):
             loss, stats = self.loss(as_stack_list(outs), ys)
-        loss.backward()
+        with span("scd.step.backward"):
+            loss.backward()
         if self.data_group is not None:
-            sync_gradients(self.model.parameters(), self.data_group)
-        self.optimizer.step()
+            with span("scd.collective.grad_sum"):
+                sync_gradients(self.model.parameters(), self.data_group)
+        with span("scd.step.optimizer"):
+            self.optimizer.step()
         self.updates += 1
         self._last_batch = (xs, ys)
         if self.data_group is None:
             return loss.detach(), [s.detach() for s in stats]
         # the ranks' shares summed: the global batch's loss, on every rank
-        report = reduce_sum_(torch.stack([loss.detach()] + [
-            s.detach() for s in stats]), self.data_group)
+        with span("scd.collective.report"):
+            report = reduce_sum_(torch.stack([loss.detach()] + [
+                s.detach() for s in stats]), self.data_group)
         return report[0], list(report[1:])
 
     def train(self, samples, locs, counts, draws: Optional[Draws] = None):
@@ -482,19 +498,22 @@ class NetworkFactory:
                    draws: Optional[Draws] = None):
         """One step on this rank's rows of the global batch (all of it
         without a data axis)."""
-        return self._step(*(torch.as_tensor(a).to(self.device)
-                            for a in (samples, locs, counts)), draws)
+        with span("scd.step.feed"):
+            rows = [torch.as_tensor(a).to(self.device)
+                    for a in (samples, locs, counts)]
+        return self._step(*rows, draws)
 
     def train_resident(self, idx: np.ndarray, draws: Optional[Draws] = None):
         """One step on the resident rows ``idx`` (on a data axis the
         global index vector, shard-major, of which this rank takes its
         block of local indices)."""
-        if self.mesh is not None:
-            idx = shard_rows(self.mesh, np.asarray(idx))
-        idx = torch.as_tensor(idx).to(self.device)
-        return self._step(self._ds_samples.index_select(0, idx),
-                          self._ds_locs.index_select(0, idx),
-                          self._ds_counts.index_select(0, idx), draws)
+        with span("scd.step.feed"):
+            if self.mesh is not None:
+                idx = shard_rows(self.mesh, np.asarray(idx))
+            idx = torch.as_tensor(idx).to(self.device)
+            rows = [t.index_select(0, idx) for t in (
+                self._ds_samples, self._ds_locs, self._ds_counts)]
+        return self._step(*rows, draws)
 
     # ---- the resident dataset ----------------------------------------------
 
@@ -714,7 +733,8 @@ class NetworkFactory:
         eval_lines = ["Experiment: {}\n".format(cfg.trainName),
                       "Parameter Count: {}\n".format(self.parameter_count)]
         writer = self.rank == 0  # one writer on shared storage
-        telemetry = StepTelemetry(telemetry_path if writer else None)
+        telemetry = StepTelemetry(telemetry_path if writer else None,
+                                  first_step=it)
         progress = ProgressLine(None if writer else False)
         profiler = StepProfiler()
         if not writer:
@@ -771,7 +791,8 @@ class NetworkFactory:
                         progress.clear()
                         if self.debug and writer:
                             self.dump_debug_overlays(it)
-                        tr_line, it_line = self._validation_lines(it)
+                        with span("scd.train.validate"):
+                            tr_line, it_line = self._validation_lines(it)
                         eval_lines.append(tr_line + "\n" + it_line + "\n")
                         Logger.info_green(tr_line)
                         Logger.info(it_line)
@@ -792,8 +813,9 @@ class NetworkFactory:
                                       else value > best_val)):
                                 best_val, best_it = value, it
                                 cfg.update_iteration(it)
-                                self.save_parameters(
-                                    self._best_checkpoint_path())
+                                with span("scd.train.snapshot"):
+                                    self.save_parameters(
+                                        self._best_checkpoint_path())
                         # a diverged run stops here with its state saved
                         if not torch.isfinite(loss).item():
                             cfg.update_iteration(it)
@@ -808,18 +830,19 @@ class NetworkFactory:
                     # the step; the rows go to the host at a snapshot
                     loss_rows.append((it, torch.stack([loss, *stats])))
                     steps_this_run += 1
-                    ips = steps_this_run / (time.perf_counter() - t_start)
-                    telemetry.record(it, {"ips": ips})
+                    telemetry.record(it)
                     progress.update(
-                        it, total, ips,
+                        it, total,
+                        steps_this_run / (time.perf_counter() - t_start),
                         loss=float(loss)
                         if it % cfg.validationFrequency == 0 else None)
 
                     if it % cfg.snapshotFrequency == 0:
                         progress.clear()
                         cfg.update_iteration(it)
-                        self.save_parameters()
-                        flush_rows(it)
+                        with span("scd.train.snapshot"):
+                            self.save_parameters()
+                            flush_rows(it)
 
                     self._stop_requested = self._any_stop()
                     if self._stop_requested and it < total:

@@ -6,7 +6,8 @@ environment ``torchrun`` sets) runs every multi-rank job of the module:
 
 - ``dp``: ``meshShape [2]``, three float32 steps of ``centerOffsetRes10q``
   on global host batches of 4 (2 clips a rank) with the global batch's
-  draws, from the JAX trainer's converted initial weights;
+  draws, from the JAX trainer's converted initial weights, the first
+  under a CPU profiler (the collectives' spans in rank 0's trace);
 - ``resident``: the same on the resident rows, each step's global index
   vector from ``epoch_local_indices(4, 2 shards)`` and JAX's draws, held
   against the JAX trainer on a ``data`` mesh of two virtual devices with
@@ -69,6 +70,7 @@ from scd_resnet_tpu_torch.core.convert import state_dict_from_flax
 from scd_resnet_tpu_torch.data.dataset import SCDDataset
 from scd_resnet_tpu_torch.data.pipeline import Draws, draw
 from scd_resnet_tpu_torch.data.synthetic import make_archive
+from scd_resnet_tpu_torch.models.layers import BatchNorm
 from scd_resnet_tpu_torch.train.factory import NetworkFactory
 from scd_resnet_tpu_torch.train.registry import get_model_profile
 
@@ -197,7 +199,8 @@ def runs(tmp_path_factory):
     rank_dir = root / "rank{rank}"
     jobs = [
         {"name": "dp", "settings": _settings(root / "dp", meshShape=[2]),
-         "archive": path, "state": state_path, "steps": host_steps},
+         "archive": path, "state": state_path, "steps": host_steps,
+         "profile": True},
         {"name": "resident", "settings": _settings(
             root / "res", residency="device"), "archive": path,
          "state": state_path, "steps": resident_steps},
@@ -243,6 +246,21 @@ def test_two_data_ranks_equal_one_process(runs, job, single):
                                np.asarray(want["losses"]), rtol=1e-5)
     _assert_grads_close(got["grads"], want["grads"], 1e-4)
     assert not got["sharded"]
+
+
+def test_rank_zero_trace_splits_the_collectives(runs):
+    """The profiled step of the ``dp`` job: the BatchNorm statistics'
+    all-reduce, the loss counts, the gradient sum and the loss report
+    are spans of their own beside the step's phases, a BatchNorm's
+    once per BatchNorm of the model."""
+    spans = runs["ranks"]["dp"]["spans"]
+    for name in ("scd.collective.grad_sum", "scd.collective.report",
+                 "scd.step.feed", "scd.step.forward", "scd.step.backward"):
+        assert spans.count(name) == 1, name
+    assert spans.count("scd.collective.loss_counts") >= 2
+    model = get_model_profile(ARCH).build()
+    assert spans.count("scd.collective.bn_stats") == sum(
+        isinstance(m, BatchNorm) for m in model.modules())
 
 
 def test_no_positive_anywhere_reads_the_global_count(runs):

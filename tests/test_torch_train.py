@@ -457,3 +457,29 @@ def test_train_entry_point_on_cpu(archive, tmp_path, monkeypatch):
         assert (tmp_path / "results" / name).exists()
     assert (tmp_path / "temp" / "{}.tiny.best.pth".format(ARCH)).exists()
     assert json.load(open(tmp_path / "scdx16p100.split.json"))["validation"]
+
+
+def test_telemetry_rate_is_since_the_previous_row(tmp_path, monkeypatch):
+    """Each telemetry row's ``ips`` is the steps a second since the row
+    before it (the first row's since the telemetry began, at the run's
+    first step), not a running mean from the start: a slow start (warm-up,
+    autotuning) stays in the first row."""
+    from types import SimpleNamespace
+
+    from scd_resnet_tpu_torch.core import logging as port_logging
+
+    # the clock at the start and at each written row: 10 s for the first
+    # two steps, then 1 s and 2 s for two more each
+    clock = iter([100.0, 110.0, 111.0, 113.0])
+    monkeypatch.setattr(port_logging, "time",
+                        SimpleNamespace(perf_counter=lambda: next(clock)))
+    path = tmp_path / "telemetry.jsonl"
+    telemetry = port_logging.StepTelemetry(str(path), every=2, first_step=10)
+    for step in range(11, 17):
+        telemetry.record(step, {"loss": 1.0})
+    telemetry.close()
+    rows = [json.loads(line) for line in path.read_text().splitlines()]
+    assert [r["step"] for r in rows] == [12, 14, 16]
+    assert [r["ips"] for r in rows] == [0.2, 2.0, 1.0]
+    assert [r["t"] for r in rows] == [10.0, 11.0, 13.0]
+    assert all(r["loss"] == 1.0 for r in rows)

@@ -16,7 +16,9 @@ index vectors, with the global batch's draws) or runs
 the first step; with ``record_rows``, each rank records the host rows
 it trains at each step). Rank 0 records the losses, the first step's
 gradients, the state after the first step and the final state, in the
-plain layout (model-axis shards gathered). With ``again``, each rank
+plain layout (model-axis shards gathered); with ``profile``, the job's
+steps run under a CPU ``torch.profiler`` and rank 0 records the names
+of the port's spans (``scd.*``) in its trace. With ``again``, each rank
 then builds a second factory of the same settings and rank 0 records
 whether it took the first one's process groups and how many groups it
 made. A job of ``"kind": "skip"`` instead runs one all-reduce on the
@@ -132,6 +134,8 @@ def _skip_all_reduce(job, rank: int, work: str):
 
 
 def _run_job(job, rank: int):
+    import contextlib
+
     import torch
 
     from scd_resnet_tpu_torch.core.config import Configuration
@@ -190,13 +194,17 @@ def _run_job(job, rank: int):
             factory.request_stop()
         out["summary"] = factory.begin_training()
         out["preempted"] = factory.preempted
+    profiler = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU]) \
+        if job.get("profile") else contextlib.nullcontext()
     for k, step in enumerate(job.get("steps", [])):
-        if "idx" in step:
-            loss, stats = factory.train_resident(step["idx"],
-                                                 draws=step.get("draws"))
-        else:
-            loss, stats = factory.train(*step["batch"],
-                                        draws=step.get("draws"))
+        with profiler if k == 0 else contextlib.nullcontext():
+            if "idx" in step:
+                loss, stats = factory.train_resident(step["idx"],
+                                                     draws=step.get("draws"))
+            else:
+                loss, stats = factory.train(*step["batch"],
+                                            draws=step.get("draws"))
         out["losses"].append([loss.item()] + [s.item() for s in stats])
         if k == 0:
             out["grads"] = {k: g.clone() for k, g in full_gradients(
@@ -205,6 +213,9 @@ def _run_job(job, rank: int):
                 factory.model, factory.optimizer, factory.sharded,
                 factory.mesh)
             out["first_state"] = {k: v.clone() for k, v in first.items()}
+    if job.get("profile"):
+        out["spans"] = [e.name for e in profiler.events()
+                        if e.name.startswith("scd.")]
     state, opt = full_checkpoint_state(factory.model, factory.optimizer,
                                        factory.sharded, factory.mesh)
     out["state"] = {k: v.clone() for k, v in state.items()}
