@@ -164,7 +164,19 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
    AP50 and avgS for exp74, dcn_full and hourglass2_best; boxAP50 for
    cpool_best; AP50 and mIoU for legacy_full; peakAP50 and mIoU for
    centersize_full) and the resumed run must
-   start at iteration 41;
+   start at iteration 41. Then exp74 and cpool_best take one bfloat16
+   step each on the archive's rows held on the card, after three warm
+   steps, under ``torch.profiler`` (``check_layout``): the model is
+   channels-last, so cuDNN's ``nchwToNhwc`` and ``nhwcToNchw`` kernels
+   may run only inside its engines for the one-channel stem and tiny
+   weight gradients (at most 3 launches and 0.5 ms a step) and BatchNorm
+   must run its ``channels_last`` kernels; the
+   tensors converted at the hand kernels' NCHW boundary
+   (``cuda_build.LAYOUT_COPIES``) must be K5's three and, on cpool_best,
+   each corner-pool kernel's four. It prints them, each BatchNorm and
+   copy kernel's name and ms a step, and the transposes left
+   (``python3 chip_smoke.py --layout`` runs this check alone, after the
+   build and the archive);
 9. takes one float32 train step at full width on 2 clips, augmentation
    off, from the same weights on the card (the kernels) and on the CPU
    (the plain versions), for ``centerOffsetRes10``, ``cornerCPoolRes10``,
@@ -2116,13 +2128,14 @@ def train_config(config: str, data_dir: str, work: str, metrics,
         "{:.4f} (last 10); [It] at {}: {} {}; train clips/s {:.1f} and "
         "{:.1f}, {:.1f} ms a step in the resumed run (validation, "
         "snapshots and cuDNN autotuning included); peak memory {} GB; "
-        "launches {} (expected {})".format(
+        "launches {} (expected {}); layout copies {}".format(
             arch, first["steps"], second["steps"], focal[:10].mean(),
             focal[-10:].mean(), TRAIN_ITERS, metrics[0],
             parse_metric_line(it_lines[-1], metrics[0]),
             first["clips_per_s"], second["clips_per_s"],
             second["seconds"] * 1e3 / max(second["steps"], 1), peak_gb,
-            launches, expected))
+            launches, expected, {k: v for k, v in second[
+                "layout_copies"].items() if v}))
     if launches != expected:
         raise AssertionError("{}: the kernels launched {}, expected {} ({} "
                              "train steps, {} validation clips)".format(
@@ -2135,6 +2148,96 @@ def train_config(config: str, data_dir: str, work: str, metrics,
             "focal_last10": float(focal[-10:].mean()),
             "it_line": it_lines[-1].strip(), "launches": launches,
             "peak_memory_gb": peak_gb}
+
+
+LAYOUT_TRANSPOSES = ("nchwToNhwc", "nhwcToNchw")  # cuDNN's kernels' names
+# what a channels-last step keeps of them, inside cuDNN's engines (measured
+# on an H100): the stem's wgrad pads its one-channel input (0.36 ms) and two
+# weight gradients of one-channel or 1x1 filters turn (2 us each)
+LAYOUT_TRANSPOSE_RESIDUE = {"launches": 3, "ms": 0.5}
+# PyTorch's BatchNorm kernels for NCHW tensors, one block a channel
+NCHW_BATCH_NORM = ("batch_norm_collect_statistics_kernel",
+                   "batch_norm_transform_input_kernel",
+                   "batch_norm_backward_kernel",
+                   "batch_norm_backward_reduce_kernel",
+                   "batch_norm_backward_elemt_kernel")
+# tensors a bfloat16 step converts at the hand kernels' NCHW boundary
+LAYOUT_COPIES = {
+    "centerOffsetRes10": {mp.KERNEL_NAME: 3},
+    "cornerCPoolRes10": {mp.KERNEL_NAME: 3, **{name: 4 for name in (
+        *cp.KERNEL_NAMES.values(), *cp.BWD_KERNEL_NAMES.values())}}}
+
+
+def check_layout(data_dir: str, work: str, device: str = "cuda"):
+    """One profiled bfloat16 step of exp74 and of cpool_best (phase 8's
+    end): cuDNN's layout transposes only as far as its engines keep them
+    (``LAYOUT_TRANSPOSE_RESIDUE``), BatchNorm's channels-last kernels,
+    the expected boundary copies. Returns each configuration's copies,
+    BatchNorm, copy and transpose kernels (ms a step)."""
+    # a bfloat16 training process's cuDNN (the train CLI's, the benchmark's)
+    # keeps TF32 on; main() turned it off for serving, and without it the
+    # float32 heads' convolutions take NCHW engines: 9 more transposes,
+    # 1.0 ms a step on exp74 (measured on an H100)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        return {values["modelName"]: layout_step(values, device)
+                for values in (settings(config, data_dir, work,
+                                        residency="device")
+                               for config in (EXP74, CPOOL_BEST))}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def layout_step(values, device: str):
+    """``check_layout`` for one configuration's ``settings``."""
+    cfg = Configuration()
+    cfg.update_config(values)
+    with training_backends(values["precision"]):
+        factory = NetworkFactory(cfg, device=device)
+        feed = iter(factory.dataset.epoch_local_indices(
+            cfg.batchSize, 0, local_train=factory._local_train))
+        for _ in range(3):
+            factory.train_resident(next(feed))
+        idx = next(feed)
+        cuda_build.reset_launches()
+        factory.train_resident(idx)
+        copies = {k: v for k, v in cuda_build.LAYOUT_COPIES.items() if v}
+        kernels = device_kernels(lambda: factory.train_resident(idx),
+                                 calls=2)["kernels"]
+    arch = values["modelName"]
+    transposes = {k: v for k, v in kernels.items()
+                  if any(t in k for t in LAYOUT_TRANSPOSES)}
+    batch_norm = {k: round(v["ms"], 4) for k, v in kernels.items()
+                  if "batch_norm" in k}
+    copies_ms = {k: round(v["ms"], 4) for k, v in kernels.items()
+                 if "copy" in k}
+    stem = factory.model.state_dict()[[
+        k for k in factory.model.state_dict()
+        if k.endswith("preprocess.0.weight")][0]]
+    log("{}: bf16 step, stem filter strides {}, {:.3f} device ms, "
+        "layout copies {}, BatchNorm kernels (ms a step) {}, copy "
+        "kernels (ms a step) {}, cuDNN transposes {}".format(
+            arch, stem.stride(), sum(v["ms"] for v in kernels.values()),
+            copies, batch_norm, copies_ms, transposes))
+    if (sum(v["launches"] for v in transposes.values())
+            > LAYOUT_TRANSPOSE_RESIDUE["launches"]
+            or sum(v["ms"] for v in transposes.values())
+            > LAYOUT_TRANSPOSE_RESIDUE["ms"]):
+        raise AssertionError("{}: cuDNN still transposes: {}".format(
+            arch, transposes))
+    nchw_batch_norm = [k for k in batch_norm if any(
+        name in k for name in NCHW_BATCH_NORM)]
+    if nchw_batch_norm or not any("channels_last" in k for k in batch_norm):
+        raise AssertionError("{}: BatchNorm kernels {}, not channels-last"
+                             "".format(arch, sorted(batch_norm)))
+    want = LAYOUT_COPIES[values["modelName"]]
+    if copies != want:
+        raise AssertionError("{}: layout copies {}, expected {}".format(
+            arch, copies, want))
+    return {"layout_copies": copies, "batch_norm_ms": batch_norm,
+            "copy_ms": copies_ms, "transposes": transposes,
+            "device_ms": sum(v["ms"] for v in kernels.values())}
 
 
 # -- 9. one float32 step, card against CPU ------------------------------------------
@@ -3732,6 +3835,25 @@ def cards_end(out, gpu_line: str, t_start: float) -> int:
     return 0
 
 
+def layout_main() -> int:
+    """``--layout``: the kernels built and the synthetic archive written,
+    then phase 8's ``check_layout`` alone."""
+    gpu_line = run(["nvidia-smi", "--query-gpu=name,power.limit",
+                    "--format=csv,noheader"])
+    log("card: {} | torch {}".format(gpu_line, torch.__version__))
+    compile_cache.enable_compilation_cache()
+    build_dir = os.path.join(REPO, "build", "chip_smoke")
+    data_dir = os.path.join(build_dir, "data")
+    archive = os.path.join(data_dir, "scdx16p100.d")
+    writer = start_archive(archive)
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        list(pool.map(cuda_build.build, KERNEL_SOURCES))
+    finish_archive(writer, archive)
+    layout = check_layout(data_dir, os.path.join(build_dir, "layout"))
+    log(json.dumps({"ok": True, "layout": layout, "card": gpu_line}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3838,6 +3960,7 @@ def main() -> int:
                    train_config(CENTERSIZE_FULL, data_dir,
                                 os.path.join(build_dir, "centersize_full"),
                                 ("peakAP50", "mIoU"))]
+        layout = check_layout(data_dir, os.path.join(build_dir, "layout"))
         t0 = mark("training", t0)
         # 9. one float32 step on the card and on the CPU, for each model
         steps = [step_card_vs_cpu(EXP74, os.path.join(build_dir, "step_exp74")),
@@ -3962,6 +4085,7 @@ def main() -> int:
         log(json.dumps({"serving": served, "streaming": streamed,
                         "bundles": [b[0] for b in bundles],
                         "test_checkpoint": test_c, "training": trained,
+                        "layout": layout,
                         "step_card_vs_cpu": steps, "preprocess": preprocessed,
                         "train_preprocessed": pre_trained, "psroi": psroi,
                         "grayscale": gray, "build_cache": build_cache,
@@ -3990,6 +4114,8 @@ if __name__ == "__main__":
         sys.exit(rank_job(sys.argv[2]))
     if sys.argv[1:] == ["--cards"]:
         sys.exit(cards_main())
+    if sys.argv[1:] == ["--layout"]:
+        sys.exit(layout_main())
     if sys.argv[1:] == ["--cards", "nodes"]:
         sys.exit(cards_main(only_nodes=True))
     sys.exit(main())

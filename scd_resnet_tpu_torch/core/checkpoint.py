@@ -36,12 +36,18 @@ ZIP_MAGIC = b"PK\x03\x04"
 PICKLE_PROTO = 0x80  # a legacy torch file opens with pickle's PROTO opcode
 
 
+def plain(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the CPU in the plain (NCHW-contiguous) layout, whatever
+    layout it was trained in (a bfloat16 run's are channels-last)."""
+    return t.detach().cpu().clone(memory_format=torch.contiguous_format)
+
+
 def save_checkpoint(path: str, arch: str,
                     state_dict: Dict[str, torch.Tensor]) -> str:
     get_model_profile(arch)  # refuse unknown names before writing
     torch.save({"arch": arch,
-                "state_dict": {k: v.detach().cpu()
-                               for k, v in state_dict.items()}}, path)
+                "state_dict": {k: plain(v) for k, v in state_dict.items()}},
+               path)
     return path
 
 
@@ -100,12 +106,16 @@ def save_training_checkpoint(path: str, arch: str,
                              optimizer_state: Dict[str, Any], step: int,
                              aug_step: int) -> str:
     """Write a training checkpoint atomically: a kill mid-write (the
-    preemption this file exists for) leaves the previous file whole."""
+    preemption this file exists for) leaves the previous file whole.
+    Every tensor, the optimizer's included, is written :func:`plain`."""
     get_model_profile(arch)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    optimizer_state = dict(optimizer_state, state={
+        idx: {k: plain(v) if torch.is_tensor(v) else v
+              for k, v in pstate.items()}
+        for idx, pstate in optimizer_state["state"].items()})
     payload = {"arch": arch,
-               "state_dict": {k: v.detach().cpu()
-                              for k, v in state_dict.items()},
+               "state_dict": {k: plain(v) for k, v in state_dict.items()},
                "optimizer": optimizer_state, "step": int(step),
                "aug_step": int(aug_step)}
     tmp = path + ".tmp"

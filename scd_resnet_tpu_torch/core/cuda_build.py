@@ -21,7 +21,9 @@ machine without ``nvcc``.
 
 ``LAUNCHES`` counts kernel launches by kernel name. Each wrapper adds one
 where it launches its kernel, and nowhere else, so a run can show that
-its path went through the kernels.
+its path went through the kernels. ``LAYOUT_COPIES`` counts, by the same
+names, the tensors converted between a channels-last caller and a
+kernel's NCHW layout (``ops/layout``); it stays 0 on an NCHW path.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ HOST_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared", "-Wall",
 HOST_LIBS = ("-l:libz.so.1", "-lpthread")
 
 LAUNCHES: Dict[str, int] = {}
+LAYOUT_COPIES: Dict[str, int] = {}
 
 _libraries: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -71,12 +74,18 @@ def build_root() -> Path:
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    """Zero ``LAUNCHES`` and ``LAYOUT_COPIES``."""
+    for counts in (LAUNCHES, LAYOUT_COPIES):
+        for name in counts:
+            counts[name] = 0
 
 
 def count_launch(name: str) -> None:
     LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+
+
+def count_layout_copy(name: str) -> None:
+    LAYOUT_COPIES[name] = LAYOUT_COPIES.get(name, 0) + 1
 
 
 def nvcc_path() -> str:

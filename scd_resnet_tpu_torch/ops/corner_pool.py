@@ -31,6 +31,7 @@ import ctypes
 import torch
 
 from scd_resnet_tpu_torch.core import cuda_build
+from scd_resnet_tpu_torch.ops import layout
 
 KERNEL_SOURCE = "corner_pool.cu"
 # one count per __global__ kernel: the H walk and the W warp scan
@@ -200,13 +201,16 @@ def _pool(x: torch.Tensor, dim: int, reverse: bool) -> torch.Tensor:
     """Public pool entry: always computes in float32 (exact for bf16 and
     fp16 inputs, since a running max only returns input values); the
     casts stay outside :class:`CornerPool`, as the JAX ``_pool`` keeps
-    them outside its custom VJP. Where no gradient is recorded (serving,
+    them outside its custom VJP. Each cast also converts between the
+    caller's layout and the kernels' NCHW, in the same copy, forward and
+    backward (``ops/layout``). Where no gradient is recorded (serving,
     validation, an export) the operator is called directly, so that an
     exported program holds it."""
     pool = CornerPool.apply if torch.is_grad_enabled() else corner_pool
-    if x.dtype != torch.float32:
-        return pool(x.float().contiguous(), dim, reverse).to(x.dtype)
-    return pool(x.contiguous(), dim, reverse)
+    kernels = (KERNEL_NAMES[dim], BWD_KERNEL_NAMES[dim])
+    y = pool(layout.kernel_input(x, kernels, torch.float32), dim, reverse)
+    return layout.caller_output(y, layout.is_channels_last(x), kernels,
+                                x.dtype)
 
 
 def top_pool(x: torch.Tensor) -> torch.Tensor:

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from scd_resnet_tpu_torch.core import cuda_build
+from scd_resnet_tpu_torch.ops.layout import is_channels_last
 
 KERNEL_SOURCE = "dcn_gather.cu"
 KERNEL_NAME = "dcn_gather"
@@ -370,7 +371,11 @@ def deform_conv2d(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                        weight.permute(2, 3, 1, 0).reshape(k * cin, cout))
     if bias is not None:
         out = out + bias
-    return out.reshape(b, ho, wo, cout).permute(0, 3, 1, 2).contiguous()
+    # a channels-last x (a bfloat16 training step) keeps its layout: the
+    # permuted product is channels-last as it stands
+    return out.reshape(b, ho, wo, cout).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last if is_channels_last(x)
+        else torch.contiguous_format)
 
 
 def deform_psroi_pooling(x: torch.Tensor, rois: torch.Tensor,

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from scd_resnet_tpu_torch.core import cuda_build
+from scd_resnet_tpu_torch.ops import layout
 
 KERNEL_SOURCE = "max_pool_bwd.cu"
 KERNEL_NAME = "max_pool_3x3_s2_bwd"
@@ -122,7 +123,10 @@ def max_pool_3x3_s2_bwd(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 
 class MaxPool3x3S2(torch.autograd.Function):
     """``F.max_pool2d(x, 3, 2, 1)`` whose backward is
-    :func:`max_pool_3x3_s2_bwd`; it saves only ``x``."""
+    :func:`max_pool_3x3_s2_bwd`; it saves only ``x``. A channels-last
+    ``x`` (a bfloat16 training step) and its ``dy`` reach the kernel
+    NCHW, and ``dx`` goes back channels-last, so that the stem's
+    BatchNorm keeps its channels-last kernels (``ops/layout``)."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor) -> torch.Tensor:
@@ -132,7 +136,9 @@ class MaxPool3x3S2(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy: torch.Tensor):
         (x,) = ctx.saved_tensors
-        return max_pool_3x3_s2_bwd(x, dy.contiguous())
+        dx = max_pool_3x3_s2_bwd(layout.to_kernel(x, KERNEL_NAME),
+                                 layout.to_kernel(dy, KERNEL_NAME))
+        return layout.to_caller(dx, layout.is_channels_last(x), KERNEL_NAME)
 
 
 def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,9 @@ families on one card:
   forward, under
   ``torch.autocast(bfloat16)`` when ``precision`` is ``bfloat16`` ->
   loss in float32 -> backward -> update. Parameters, BatchNorm
-  statistics and the loss stay float32;
+  statistics and the loss stay float32. A bfloat16 model is laid out
+  channels-last, its Adam state and activations following it, and a
+  float32 one NCHW (``ops/layout``); checkpoints hold the plain layout;
 - ``remat``: a model with a ``remat`` argument (the stacked hourglasses)
   recomputes its own parts in the backward; any other model has its
   whole forward recomputed (``models/layers.checkpointed``), as the JAX
@@ -126,6 +128,10 @@ from scd_resnet_tpu_torch.models.center_net_offset import (
 )
 from scd_resnet_tpu_torch.models.layers import BatchNorm, checkpointed
 from scd_resnet_tpu_torch.models.resnet import init_like_flax
+from scd_resnet_tpu_torch.ops.layout import (
+    one_channel_channels_last,
+    to_memory_format,
+)
 from scd_resnet_tpu_torch.ops.losses import global_counts
 from scd_resnet_tpu_torch.parallel.collectives import (
     gather_rows,
@@ -286,6 +292,12 @@ class NetworkFactory:
         self.remat_forward = remat and not own_remat
         init_like_flax(self.model, torch.Generator().manual_seed(seed))
         self.model.to(self.device)
+        # the model's and the batches' layout: bf16 cuDNN runs NHWC, and a
+        # float32 run stays NCHW, held to the CPU
+        self.memory_format = torch.channels_last if self.autocast \
+            else torch.contiguous_format
+        if self.memory_format == torch.channels_last:
+            to_memory_format(self.model, self.memory_format)
         self._forward = lambda xs: checkpointed(self.model, xs,
                                                 enabled=self.remat_forward)
         self._eval_forward = self.model
@@ -457,6 +469,8 @@ class NetworkFactory:
             xs, ys = augment_and_render_batch(
                 samples, locs, counts, self.heat_size, draws=draws,
                 corner_targets=self.profile.corner_targets)
+            if self.memory_format == torch.channels_last:
+                xs = one_channel_channels_last(xs)
         with span("scd.step.optimizer"):
             lr = self.schedule(self.updates)
             for group in self.optimizer.param_groups:
@@ -651,6 +665,12 @@ class NetworkFactory:
             self.mesh)
         self.model.load_state_dict(state, strict=True)
         self.optimizer.load_state_dict(opt)
+        # the file holds the plain layout; the state follows its parameter's
+        for p, pstate in self.optimizer.state.items():
+            for key, value in pstate.items():
+                if torch.is_tensor(value) and value.shape == p.shape:
+                    pstate[key] = torch.empty_like(
+                        p, dtype=value.dtype).copy_(value)
         self.updates = ckpt["step"]
         self._aug_step = ckpt["aug_step"]
 
@@ -688,8 +708,9 @@ class NetworkFactory:
 
         Returns a summary: steps run, their wall seconds (validation and
         checkpoints included) and clips per second over them, the last
-        iteration reached, and the kernel launches the run made
-        (``core/cuda_build.LAUNCHES``, by kernel name)."""
+        iteration reached, the kernel launches the run made
+        (``core/cuda_build.LAUNCHES``, by kernel name) and the tensors it
+        converted at the kernels' NCHW boundary (``LAYOUT_COPIES``)."""
         cfg = self.config
         if cfg.currentIteration > 0:
             self.load_parameters()
@@ -700,6 +721,7 @@ class NetworkFactory:
             self.load_pretrained(cfg.pretrain)
 
         launches_before = dict(cuda_build.LAUNCHES)
+        copies_before = dict(cuda_build.LAYOUT_COPIES)
         it = cfg.currentIteration
         self._aug_step = int(it)
         total = cfg.totalIterations
@@ -894,4 +916,7 @@ class NetworkFactory:
                 if seconds > 0 else 0.0,
                 "last_iteration": it,
                 "launches": {name: count - launches_before.get(name, 0)
-                             for name, count in cuda_build.LAUNCHES.items()}}
+                             for name, count in cuda_build.LAUNCHES.items()},
+                "layout_copies": {
+                    name: count - copies_before.get(name, 0)
+                    for name, count in cuda_build.LAYOUT_COPIES.items()}}

@@ -180,6 +180,34 @@ def test_max_pool_bwd_plain_matches_jax_grad(kind, shape):
     np.testing.assert_array_equal(nhwc(leaf.grad), got)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 3), (1, 13, 9, 4),
+                                   (2, 7, 10, 2), (1, 1, 1, 2)],
+                         ids=["even", "odd", "mixed", "single"])
+def test_max_pool_channels_last_equals_nchw(shape, dtype):
+    """The stem's pool on a channels-last input (a bfloat16 training
+    step's) gives the NCHW input's values and gradient, in its own
+    layout; ``x``, ``dy`` and ``dx`` each cross K5's NCHW boundary once
+    (none where the maps are 1x1, which both layouts share)."""
+    x = nchw(_stem_input("ties", shape)).to(getattr(torch, dtype))
+    b, h, w, c = shape
+    dy = torch.randn((b, c, (h - 1) // 2 + 1, (w - 1) // 2 + 1),
+                     generator=torch.Generator().manual_seed(8)).to(x.dtype)
+    results = []
+    for fmt in (torch.contiguous_format, torch.channels_last):
+        leaf = x.contiguous(memory_format=fmt).requires_grad_(True)
+        cuda_build.reset_launches()
+        out = port_max_pool.max_pool_3x3_s2(leaf)
+        out.backward(dy.contiguous(memory_format=fmt))
+        results.append((out, leaf.grad, dict(cuda_build.LAYOUT_COPIES)))
+    (out, grad, copies), (out_cl, grad_cl, copies_cl) = results
+    assert not any(copies.values())
+    assert copies_cl.get(port_max_pool.KERNEL_NAME, 0) == (
+        0 if h == w == 1 else 3)
+    assert grad_cl.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(out_cl, out) and torch.equal(grad_cl, grad)
+
+
 def test_max_pool_bwd_plain_matches_pallas_probe():
     """At C = 64 in bf16, the probe's only layout."""
     import importlib.util

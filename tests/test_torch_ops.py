@@ -73,6 +73,34 @@ def test_corner_pool_upcasts_half_precision_exactly():
     assert torch.equal(got, ref)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["random", "ties"])
+@pytest.mark.parametrize("direction", sorted(DIRECTIONS))
+def test_corner_pool_channels_last_equals_nchw(direction, kind, dtype):
+    """A channels-last input (a bfloat16 training step's) gives the NCHW
+    input's values and gradient, in its own layout and type; the pool's
+    input and output and their gradients each cross the kernels' NCHW
+    boundary once."""
+    x = nchw(_pool_input(kind)).to(getattr(torch, dtype))
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(3)
+                    ).to(x.dtype)
+    pool = getattr(port_pool, direction + "_pool")
+    results = []
+    for fmt in (torch.contiguous_format, torch.channels_last):
+        leaf = x.contiguous(memory_format=fmt).requires_grad_(True)
+        cuda_build.reset_launches()
+        out = pool(leaf)
+        out.backward(g.contiguous(memory_format=fmt))
+        copies = sum(cuda_build.LAYOUT_COPIES.values())
+        results.append((out, leaf.grad, copies))
+    (out, grad, copies), (out_cl, grad_cl, copies_cl) = results
+    assert copies == 0 and copies_cl == 4
+    for t in (out_cl, grad_cl):
+        assert t.dtype == x.dtype
+        assert t.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(out_cl, out) and torch.equal(grad_cl, grad)
+
+
 @pytest.mark.parametrize("bad", ["rank", "dim", "dtype"])
 def test_corner_pool_wrapper_rejects_bad_input(bad):
     x = torch.zeros(1, 2, 3, 4)
