@@ -68,8 +68,9 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
    normalisation) and its backward, ``grid_sampler_2d_backward``;
 6. serves ``cornerCPoolRes10``, ``centerOffsetRes10``,
    ``centerOffsetRes10dcn``, ``centerOffsetHourglass2``,
-   ``cornerLegacyHourglass`` and ``centerRes10`` (whose seeded size head
-   is random: its sizes may be negative) at full width through the port's own serve
+   ``cornerLegacyHourglass``, ``centerRes10`` (whose seeded size head
+   is random: its sizes may be negative) and ``cornerNetHourglass104``
+   at full width through the port's own serve
    entry point (``serve.build_service`` + the HTTP server), from seeded
    random weights whose heat heads are rescaled so that a few dozen
    peaks per clip pass the 0.3 threshold, and POSTs a seeded synthetic
@@ -284,6 +285,15 @@ the host on two torchrun nodes of two cards each, every rank's rows its
 block of its node's batch); ``--cards nodes`` runs that last job
 alone.
 
+``cornerNetHourglass104`` (the published CornerNet, 200,941,456
+parameters) is served in phase 6 like ``cornerLegacyHourglass`` and
+trained and resumed in phase 8 under ``configs/hourglass104_full.json``
+(bfloat16, remat); phase 8 then takes one bfloat16 step of it on rows
+held on the card (``hourglass104_step``): its parameter count, its
+launches (K2 8 a direction, K3 4, the render 2) and its boundary copies
+(``LAYOUT_COPIES``) must be exact. ``python3 chip_smoke.py
+--hourglass104`` runs these alone, after the build and the archive.
+
 Any failed phase raises and the script exits non-zero without the last
 line. It exits non-zero at once when ``torch.cuda.is_available()`` is
 false. Everything it writes goes under ``build/`` in the checkout.
@@ -400,6 +410,7 @@ CPOOL_BEST = os.path.join(REPO, "configs", "cpool_best.json")
 DCN_FULL = os.path.join(REPO, "configs", "dcn_full.json")
 HOURGLASS2_BEST = os.path.join(REPO, "configs", "hourglass2_best.json")
 LEGACY_FULL = os.path.join(REPO, "configs", "legacy_full.json")
+HOURGLASS104_FULL = os.path.join(REPO, "configs", "hourglass104_full.json")
 CENTERSIZE_FULL = os.path.join(REPO, "configs", "centersize_full.json")
 # the synthetic stand-in for the scdx16p100 archive of the configurations
 # (``make_archive``'s arguments): 2 x 128 clips of 512^2, half of them
@@ -2165,7 +2176,13 @@ NCHW_BATCH_NORM = ("batch_norm_collect_statistics_kernel",
 LAYOUT_COPIES = {
     "centerOffsetRes10": {mp.KERNEL_NAME: 3},
     "cornerCPoolRes10": {mp.KERNEL_NAME: 3, **{name: 4 for name in (
-        *cp.KERNEL_NAMES.values(), *cp.BWD_KERNEL_NAMES.values())}}}
+        *cp.KERNEL_NAMES.values(), *cp.BWD_KERNEL_NAMES.values())}},
+    # the published CornerNet: each of a forward's eight pools (four a
+    # kernel) converts its input and output, again in the remat
+    # recompute, and each pool's backward its two gradients
+    "cornerNetHourglass104": {
+        **{name: 16 for name in cp.KERNEL_NAMES.values()},
+        **{name: 8 for name in cp.BWD_KERNEL_NAMES.values()}}}
 
 
 def check_layout(data_dir: str, work: str, device: str = "cuda"):
@@ -2238,6 +2255,49 @@ def layout_step(values, device: str):
     return {"layout_copies": copies, "batch_norm_ms": batch_norm,
             "copy_ms": copies_ms, "transposes": transposes,
             "device_ms": sum(v["ms"] for v in kernels.values())}
+
+
+def hourglass104_step(data_dir: str, work: str, device: str = "cuda"):
+    """One bfloat16 step of ``cornerNetHourglass104`` (the published
+    CornerNet, 200,941,456 parameters) on the archive's rows held on the
+    card, after three warm steps: its boundary copies must be
+    ``LAYOUT_COPIES``' and its kernels K2 8 a direction (a forward's four
+    pools a kernel and the remat recompute's), K3 4 a direction and the
+    render 2 (tl and br), exactly."""
+    values = settings(HOURGLASS104_FULL, data_dir, work, residency="device")
+    cfg = Configuration()
+    cfg.update_config(values)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with training_backends(values["precision"]):
+            factory = NetworkFactory(cfg, device=device)
+            feed = iter(factory.dataset.epoch_local_indices(
+                cfg.batchSize, 0, local_train=factory._local_train))
+            for _ in range(3):
+                factory.train_resident(next(feed))
+            cuda_build.reset_launches()
+            factory.train_resident(next(feed))
+            copies = {k: v for k, v in cuda_build.LAYOUT_COPIES.items() if v}
+            launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+            params = factory.parameter_count
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    want = {gaussian.KERNEL_NAME: 2,
+            **{name: 8 for name in cp.KERNEL_NAMES.values()},
+            **{name: 4 for name in cp.BWD_KERNEL_NAMES.values()}}
+    log("cornerNetHourglass104: {} parameters; a bf16 step with remat "
+        "launches {} (expected {}), layout copies {} (expected {})".format(
+            params, launches, want, copies,
+            LAYOUT_COPIES["cornerNetHourglass104"]))
+    if params != 200_941_456:
+        raise AssertionError("cornerNetHourglass104 has {} parameters, not "
+                             "the paper's 200,941,456".format(params))
+    if launches != want or copies != LAYOUT_COPIES["cornerNetHourglass104"]:
+        raise AssertionError("cornerNetHourglass104: launches {}, layout "
+                             "copies {} a step".format(launches, copies))
+    return {"parameters": params, "launches": launches,
+            "layout_copies": copies}
 
 
 # -- 9. one float32 step, card against CPU ------------------------------------------
@@ -3854,6 +3914,40 @@ def layout_main() -> int:
     return 0
 
 
+def hourglass104_main() -> int:
+    """``--hourglass104``: the kernels built and the synthetic archive
+    written, then ``cornerNetHourglass104`` alone through phases 6 and 8:
+    served over HTTP (one 3092x2056 slide's latency and paired boxes),
+    trained under ``configs/hourglass104_full.json`` and resumed with
+    exact launches, and one step's boundary copies."""
+    gpu_line = run(["nvidia-smi", "--query-gpu=name,power.limit",
+                    "--format=csv,noheader"])
+    log("card: {} | torch {}".format(gpu_line, torch.__version__))
+    t_start = time.perf_counter()
+    compile_cache.enable_compilation_cache()
+    build_dir = os.path.join(REPO, "build", "chip_smoke")
+    data_dir = os.path.join(build_dir, "data")
+    archive = os.path.join(data_dir, "scdx16p100.d")
+    writer = start_archive(archive)
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        list(pool.map(cuda_build.build, KERNEL_SOURCES))
+    reproducible_float32()
+    slide = synthetic_slide(SLIDE_H, SLIDE_W, seed=2056)
+    served = serve_model("cornerNetHourglass104", 16, slide, build_dir,
+                         gpu_line)
+    finish_archive(writer, archive)
+    trained = train_config(HOURGLASS104_FULL, data_dir,
+                           os.path.join(build_dir, "hourglass104_full"),
+                           ("AP50", "mIoU"))
+    step = hourglass104_step(data_dir, os.path.join(build_dir,
+                                                    "hourglass104_step"))
+    log(json.dumps({"serving": served, "training": trained, "step": step,
+                    "seconds": time.perf_counter() - t_start,
+                    "card": gpu_line}))
+    log(json.dumps({"ok": True, "card": gpu_line}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3917,7 +4011,8 @@ def main() -> int:
                                          ("centerOffsetRes10dcn", 12),
                                          ("centerOffsetHourglass2", 13),
                                          ("cornerLegacyHourglass", 14),
-                                         ("centerRes10", 15))]
+                                         ("centerRes10", 15),
+                                         ("cornerNetHourglass104", 16))]
             gray = check_grayscale()
             t0 = mark("serving", t0)
             # 6, continued: the served checkpoints streamed, pipelined, traced
@@ -3959,8 +4054,13 @@ def main() -> int:
                                 ("AP50", "mIoU")),
                    train_config(CENTERSIZE_FULL, data_dir,
                                 os.path.join(build_dir, "centersize_full"),
-                                ("peakAP50", "mIoU"))]
+                                ("peakAP50", "mIoU")),
+                   train_config(HOURGLASS104_FULL, data_dir,
+                                os.path.join(build_dir, "hourglass104_full"),
+                                ("AP50", "mIoU"))]
         layout = check_layout(data_dir, os.path.join(build_dir, "layout"))
+        layout["cornerNetHourglass104"] = hourglass104_step(
+            data_dir, os.path.join(build_dir, "hourglass104_step"))
         t0 = mark("training", t0)
         # 9. one float32 step on the card and on the CPU, for each model
         steps = [step_card_vs_cpu(EXP74, os.path.join(build_dir, "step_exp74")),
@@ -4034,6 +4134,8 @@ def main() -> int:
                  "train_dcn_full": trained[2]["launches"],
                  "train_hourglass2_best": trained[3]["launches"],
                  "train_legacy_full": trained[4]["launches"],
+                 "serve_cornerNetHourglass104": served[6]["launches"],
+                 "train_hourglass104_full": trained[6]["launches"],
                  "train_centersize_full": trained[5]["launches"],
                  "train_preprocessed_exp74": pre_trained["launches"],
                  "train_exp74_two_ranks": two_rank_counts,
@@ -4116,6 +4218,8 @@ if __name__ == "__main__":
         sys.exit(cards_main())
     if sys.argv[1:] == ["--layout"]:
         sys.exit(layout_main())
+    if sys.argv[1:] == ["--hourglass104"]:
+        sys.exit(hourglass104_main())
     if sys.argv[1:] == ["--cards", "nodes"]:
         sys.exit(cards_main(only_nodes=True))
     sys.exit(main())

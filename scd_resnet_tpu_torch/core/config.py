@@ -49,7 +49,8 @@ _DEFAULTS: Dict[str, Any] = {
     "dirDatafile": "{dirDataset}{datasetName}.d",
     "dirDataSplitProfile": "{dirDataset}{datasetName}.split.json",
     "useGPU": False,
-    # the JAX train.py's -debug overlays (not in the port)
+    # overlay PNGs of the last trained batch at every validation boundary
+    # (the JAX train.py's -debug; NetworkFactory.dump_debug_overlays)
     "debug": False,
     # extensions over the reference schema:
     # conv-path compute precision — "float32" | "bfloat16" (params, BN
@@ -62,7 +63,9 @@ _DEFAULTS: Dict[str, Any] = {
     "residencyBudgetGB": 8.0,
     # in-memory and on-card clip storage — "float32" | "float16" | "uint8"
     "storageDtype": "float16",
-    # activation rematerialization (the JAX trainer's; not in the port)
+    # activation rematerialization: the stacked hourglasses recompute each
+    # stack's hourglass and branch in the backward, other models their
+    # whole forward (models/layers.checkpointed, as the JAX trainer's remat)
     "remat": False,
     # base PRNG seed for init/shuffling/augmentation
     "seed": 42,
@@ -71,7 +74,8 @@ _DEFAULTS: Dict[str, Any] = {
     # {modelName}.{trainName}.best.pth
     "bestSnapshotMetric": None,
     "bestSnapshotMode": "max",  # "max" | "min" (for MAE-style metrics)
-    # the JAX trainer's device mesh and pipeline schedule (not in the port)
+    # the device mesh (axes "data", "model", "pipe") and the pipeline's
+    # microbatches, as the JAX trainer's (parallel/mesh, parallel/pipeline)
     "meshShape": None,
     "meshAxes": None,
     "pipelineMicrobatches": None,

@@ -12,6 +12,17 @@ kernels on the card) and three heads, ConvBlock(3x3, 256, biased, no BN)
 JAX heads' final ``nn.Conv`` with no ``dtype`` promotes to its float32
 parameters. Two stacks launch the pool kernel 8 times a forward.
 
+``HOURGLASS104`` is the published geometry (Law & Deng, ECCV 2018,
+princeton-vl/CornerNet models/CornerNet.py: Hourglass-104, ``n = 5``,
+``nstack = 2``, ``cnv_dim = 256``; its corner pools' branches are
+``models/corner_net.POOL_WIDTH`` = 128 wide and its heads
+``HEAD_HIDDEN`` = 256, as here), 200,941,456 parameters with one
+category; the class's defaults are the JAX package's scaled-down widths.
+
+Under a profiler each branch is an ``scd.model.corner`` span and the
+loss's pull/push terms an ``scd.loss.embedding`` span
+(``core/profiling.span``).
+
 ``remat=True`` recomputes each stack's hourglass and each branch in the
 backward (``models/layers.checkpointed``), as the JAX model's ``nn.remat``
 does: 8 more pool launches a train step. The state-dict keys are the
@@ -34,6 +45,7 @@ from typing import Callable, Dict, List, Sequence, Tuple
 import torch
 from torch import nn
 
+from scd_resnet_tpu_torch.core.profiling import span
 from scd_resnet_tpu_torch.evaluations.detection import iou
 from scd_resnet_tpu_torch.models.corner_net import CornerPoolBlock
 from scd_resnet_tpu_torch.models.hourglass import StackHourglass
@@ -59,6 +71,11 @@ from scd_resnet_tpu_torch.ops.losses import (
 
 HEAD_HIDDEN = 256
 BRANCH_HEADS = ("heat", "tag", "regr")
+HOURGLASS104_DIMENSIONS = (256, 256, 384, 384, 384, 512)
+HOURGLASS104_MODULES = (2, 2, 2, 2, 2, 4)
+HOURGLASS104 = {"iterations": 5, "stacks": 2,
+                "dimensions": HOURGLASS104_DIMENSIONS,
+                "modules": HOURGLASS104_MODULES, "prediction_dim": 256}
 
 
 class CornerBranch(nn.Module):
@@ -77,8 +94,9 @@ class CornerBranch(nn.Module):
                                        final_bias=bias), block=True))
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        feat = self.pool_block(x)
-        return tuple(getattr(self, name)(feat) for name in BRANCH_HEADS)
+        with span("scd.model.corner"):
+            feat = self.pool_block(x)
+            return tuple(getattr(self, name)(feat) for name in BRANCH_HEADS)
 
 
 class CornerNetLegacy(StackHourglass):
@@ -136,7 +154,8 @@ class CornerNetLegacyLoss:
         for out in outs:
             tl_tag = reshape_gather_features(out["tl_tag"].float(), tl_inds)
             br_tag = reshape_gather_features(out["br_tag"].float(), br_inds)
-            pull, push = embedding_loss(tl_tag, br_tag, mask)
+            with span("scd.loss.embedding"):
+                pull, push = embedding_loss(tl_tag, br_tag, mask)
             pull_l = pull_l + pull
             push_l = push_l + push
             tl_regr = reshape_gather_features(out["tl_regr"].float(),

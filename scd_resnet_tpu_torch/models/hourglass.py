@@ -28,7 +28,9 @@ with ``strict=True``.
 
 ``remat=True`` recomputes each stack's hourglass in the backward
 (``models/layers.checkpointed``), as the JAX ``nn.remat`` does; the
-parameters and state-dict keys are the same either way.
+parameters and state-dict keys are the same either way. Under a profiler
+each stack's hourglass call, its recompute included, is an
+``scd.model.hourglass`` span (``core/profiling.span``).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from scd_resnet_tpu_torch.core.profiling import span
 from scd_resnet_tpu_torch.models.layers import (
     ConvBlock,
     batch_norm,
@@ -143,12 +146,16 @@ class StackHourglass(nn.Module):
         return {name: getattr(self, name)[stack](cnv)
                 for name in self.terminal_names}
 
+    def hourglass(self, stack: int, x: torch.Tensor) -> torch.Tensor:
+        """Stack ``stack``'s hourglass on ``x``."""
+        with span("scd.model.hourglass"):
+            return self.hourglassStack[stack](x)
+
     def forward(self, x: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
         inter = self.preprocess(x)
         outs = []
         for s in range(self.stacks):
-            kp = checkpointed(self.hourglassStack[s], inter,
-                              enabled=self.remat)
+            kp = checkpointed(self.hourglass, s, inter, enabled=self.remat)
             cnv = self.redimConvolution[s](kp)
             outs.append(self.heads(s, cnv))
             if s < self.stacks - 1:

@@ -20,10 +20,14 @@ registry's (reference trainer/model/*.py):
 - ``cornerLegacyHourglass``: the 2-stack associative-embedding
   CornerNet, family ``cornerLegacy``, trained on the legacy corner
   targets (``corner_targets="legacy"``);
+- ``cornerNetHourglass104``: the same CornerNet at its published
+  Hourglass-104 widths (``models/corner_net_legacy.HOURGLASS104``, 201M
+  parameters), trained and served as ``cornerLegacyHourglass``;
 - ``centerRes10``: the size-regression CenterNet, full width, family
   ``centerSize``, loss weight 1.0 (reference models/centerNet.py).
 
-These are all 21 profiles of the JAX registry.
+These are 22 profiles: all 21 of the JAX registry and the port's own
+``cornerNetHourglass104``.
 
 ``family`` names the deployment contract (``infer/wrapper.CONTRACTS``).
 Every profile carries its training pieces (``loss``, ``decode``,
@@ -168,17 +172,19 @@ for _stacks, _name in ((1, "centerOffsetHourglass"),
         expression=expression_center_net,
     ))
 
-register_model(ModelProfile(
-    name="cornerLegacyHourglass",
-    model_cls=legacy.CornerNetLegacy,
-    model_params={"categories": 1, "stacks": 2},
-    family="cornerLegacy",
-    loss=legacy.CornerNetLegacyLoss(),
-    decode=legacy.decode_corner_net_legacy_list,
-    evaluation=legacy.corner_net_legacy_evaluation,
-    expression=expression_corner_net_legacy,
-    corner_targets="legacy",
-))
+for _name, _geometry in (("cornerLegacyHourglass", {"stacks": 2}),
+                         ("cornerNetHourglass104", legacy.HOURGLASS104)):
+    register_model(ModelProfile(
+        name=_name,
+        model_cls=legacy.CornerNetLegacy,
+        model_params={"categories": 1, **_geometry},
+        family="cornerLegacy",
+        loss=legacy.CornerNetLegacyLoss(),
+        decode=legacy.decode_corner_net_legacy_list,
+        evaluation=legacy.corner_net_legacy_evaluation,
+        expression=expression_corner_net_legacy,
+        corner_targets="legacy",
+    ))
 
 register_model(ModelProfile(
     name="centerRes10",
