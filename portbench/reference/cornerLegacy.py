@@ -29,6 +29,16 @@ places them (``inputs.train_pool``: centres 40 pixels from the border,
 floors of a quarter); :func:`loss` asserts what that leaves, each
 clip's counted records a prefix.
 
+Every tensor that the port's bfloat16 autocast holds in bfloat16 (a
+convolution's output but a head's final one, which the port computes in
+float32; BatchNorm's; each sum of two maps) passes through
+``quantize(t, "input")`` where it is made: the identity for the
+reference, so that its float32 arithmetic is as written; for the
+control, a rounding to the precision below the configuration's there as
+well as at each convolution's operands, forward and backward
+(``reference/precision.py``). A running maximum, a ReLU, an upsample and
+a concatenation return input values and are not rounded.
+
 Under the float32 trainer each stack's residuals, each branch and the
 stem recompute in the backward (``torch.utils.checkpoint``), which
 leaves the arithmetic as it is and fits a batch of 32 of the published
@@ -51,6 +61,7 @@ from portbench.reference.cornerCPool import (
     TOP,
     ConvBN,
     PoolBlock,
+    running_max,
 )
 from portbench.reference.model import Conv, Layer, Norm, conv_shape, identity
 from portbench.reference.train import corner_radius, focal, heat_map
@@ -68,6 +79,27 @@ def _recomputed(fn: Callable, x: torch.Tensor) -> torch.Tensor:
     return checkpoint(fn, x, use_reentrant=False)
 
 
+def _conv_bn(conv: Conv, norm: Norm, x, q):
+    """``norm(conv(x))``, each output held as autocast holds it."""
+    return q(norm.run(q(conv.run(x, q), "input")), "input")
+
+
+def _pool_block(block: PoolBlock, x, q):
+    """``cornerCPool.PoolBlock.run`` with its outputs held as autocast
+    holds them (:func:`_conv_bn`)."""
+    p1 = running_max(torch.relu(_conv_bn(block.branch1.conv,
+                                         block.branch1.bn, x, q)),
+                     *block.pools[0])
+    p2 = running_max(torch.relu(_conv_bn(block.branch2.conv,
+                                         block.branch2.bn, x, q)),
+                     *block.pools[1])
+    merged = _conv_bn(block.merge_conv, block.merge_bn, q(p1 + p2, "input"),
+                      q)
+    skip = _conv_bn(block.skip_conv, block.skip_bn, x, q)
+    return torch.relu(_conv_bn(block.out.conv, block.out.bn,
+                               torch.relu(q(merged + skip, "input")), q))
+
+
 class Residual(nn.Module):
     """3x3(stride) + BN + ReLU, 3x3 + BN, plus the input or a 1x1(stride)
     + BN projection of it (``skip``), ReLU."""
@@ -83,11 +115,11 @@ class Residual(nn.Module):
 
     def run(self, x, q):
         def body(x):
-            y = torch.relu(self.bn1.run(self.conv1.run(x, q)))
-            y = self.bn2.run(self.conv2.run(y, q))
+            y = torch.relu(_conv_bn(self.conv1, self.bn1, x, q))
+            y = _conv_bn(self.conv2, self.bn2, y, q)
             if self.skip is not None:
-                x = self.skip[1].run(self.skip[0].run(x, q))
-            return torch.relu(y + x)
+                x = _conv_bn(self.skip[0], self.skip[1], x, q)
+            return torch.relu(q(y + x, "input"))
         return _recomputed(body, x)
 
 
@@ -116,8 +148,8 @@ class Hourglass(nn.Module):
     def run(self, x, q):
         low = self.changeDimensionBack.run(self.embeddedHourglass.run(
             self.changeDimension.run(x, q), q), q)
-        return self.preserveCurrentDimension.run(x, q) \
-            + F.interpolate(low, scale_factor=2, mode="nearest")
+        return q(self.preserveCurrentDimension.run(x, q)
+                 + F.interpolate(low, scale_factor=2, mode="nearest"), "input")
 
 
 class StemConv(nn.Module):
@@ -129,7 +161,7 @@ class StemConv(nn.Module):
         self.bn = Norm(cout)
 
     def run(self, x, q):
-        return torch.relu(self.bn.run(self.conv.run(x, q)))
+        return torch.relu(_conv_bn(self.conv, self.bn, x, q))
 
 
 class Head(nn.Module):
@@ -142,7 +174,8 @@ class Head(nn.Module):
         self.add_module("1", Conv(hidden, cout, 1, bias=True))
 
     def run(self, x, q):
-        hidden = torch.relu(getattr(self, "0").conv.run(x, q))
+        hidden = torch.relu(q(getattr(self, "0").conv.run(x, q), "input"))
+        # the port computes the final convolution in float32
         return getattr(self, "1").run(hidden, q)
 
 
@@ -157,7 +190,7 @@ class Branch(nn.Module):
 
     def run(self, x, q):
         def body(x):
-            f = self.pool_block.run(x, q)
+            f = _pool_block(self.pool_block, x, q)
             return torch.cat([getattr(self, h).run(f, q) for h in HEADS], 1)
         return _recomputed(body, x)
 
@@ -197,8 +230,10 @@ class CornerLegacy(nn.Module):
         inter = self.preprocess[1].run(inter, q)
         outs = []
         for s in range(self.stacks):
-            cnv = self.redimConvolution[s].run(
-                self.hourglassStack[s].run(inter, q), q)
+            redim = self.redimConvolution[s]
+            cnv = torch.relu(_conv_bn(redim.conv, redim.bn,
+                                      self.hourglassStack[s].run(inter, q),
+                                      q))
             out = {}
             for corner in ("tl", "br"):
                 maps = getattr(self, corner)[s].run(cnv, q)
@@ -209,8 +244,9 @@ class CornerLegacy(nn.Module):
             outs.append(out)
             if s < self.stacks - 1:
                 a, b = self.shortcutLayers[s], self.convPrevHourglass[s]
-                inter = torch.relu(a[1].run(a[0].run(inter, q))
-                                   + b[1].run(b[0].run(cnv, q)))
+                inter = torch.relu(q(_conv_bn(a[0], a[1], inter, q)
+                                     + _conv_bn(b[0], b[1], cnv, q),
+                                     "input"))
                 inter = self.interHourglassLayers[s].run(inter, q)
         return outs
 

@@ -1,14 +1,11 @@
 """The published CornerNet's cell, ``cornerNetHourglass104.train_b32_remat``,
 whole on the CPU at a test's size (a narrowed hourglass: widths 8-16, the
-published modules and depth), and the four-card data-parallel cell's
-files, ``centerOffsetRes10.train_dp4_b128`` at quarter width over four
-gloo ranks (its driver, traffic and limits are in the tree; the cell is
-not in ``BENCHMARK.json`` yet). Each agrees with the plain reference
-(``correct``), and both planted faults (and the four-card cell's
-control) come out not correct. Besides: the ``cornerLegacy`` family's
-targets, rebuilt from the shared transform's labels, equal the port's
-legacy transform on a seeded pool; a rank that fails ends the launch
-with every rank killed."""
+published modules and depth). It agrees with the plain reference
+(``correct``), and the fp8 control and both planted faults come out not
+correct. Besides: the ``cornerLegacy`` family's targets, rebuilt from the
+shared transform's labels, equal the port's legacy transform on a seeded
+pool; the reference's rounding points leave its float32 arithmetic as
+it is; ``head_gap`` reads the first stack of the first forward."""
 
 from __future__ import annotations
 
@@ -19,19 +16,18 @@ import pytest
 import torch
 
 from portbench import harness, inputs
-from portbench.drivers import train, train_dp
+from portbench.drivers import train, train_heads
 from portbench.reference import cornerLegacy
+from portbench.reference import model as reference_model
 from portbench.reference import train as reference_train
 from portbench.run import control, run_cell
 
 CPU = torch.device("cpu")
 SEED = 2 ** 31 + 4104
 HG = "cornerNetHourglass104.train_b32_remat"
-DP = "centerOffsetRes10.train_dp4_b128"
 SMALL_HOURGLASS = {"iterations": 5, "stacks": 2,
                    "dimensions": (8, 8, 12, 12, 12, 16),
                    "modules": (2, 2, 2, 2, 2, 4), "prediction_dim": 16}
-QUARTER = [16, 16, 32, 64, 128, 64, 64, 64]
 
 
 def _register(name: str, base: str, **params) -> None:
@@ -43,41 +39,26 @@ def _register(name: str, base: str, **params) -> None:
             full, name=name, model_params=dict(full.model_params, **params)))
 
 
-# the four-card cell is not in BENCHMARK.json (its rate spreads too widely
-# for now: PERF.md section 7); its files are, under these names
-DP_ENTRY = {"name": DP, "config": "centerOffsetRes10",
-            "traffic": "train_dp4_b128", "chips": 4}
-
-
-def small(name: str, precision: str = "float32"):
+def small(precision: str = "float32"):
     """The cell's files at a test's size, its limits as committed."""
     torch.set_num_threads(4)
     bench = harness.benchmark()
-    entry = DP_ENTRY if name == DP else harness.cell(bench, name)
+    entry = harness.cell(bench, HG)
     files = copy.deepcopy(harness.cell_files(bench, entry))
     config, traffic = files["config"], files["traffic"]
     config["train"]["precision"] = precision
-    if name == HG:
-        _register("cornerNetHourglass104s", "cornerNetHourglass104",
-                  **SMALL_HOURGLASS)
-        config.update(arch="cornerNetHourglass104s",
-                      dims=list(SMALL_HOURGLASS["dimensions"]),
-                      prediction_dim=SMALL_HOURGLASS["prediction_dim"])
-        traffic.update(clip=128, batch=8, pool=32, rows=64, max_objects=6,
-                       warmup_steps=4)
-    else:
-        _register("centerOffsetRes10q", "centerOffsetRes10",
-                  dims=tuple(QUARTER), terminal_hidden=64)
-        config.update(arch="centerOffsetRes10q", dims=QUARTER,
-                      terminal_hidden=64)
-        # 2 clips a rank; three batches of distinct clips fill the pool
-        traffic.update(clip=128, batch=8, pool=24, rows=96, max_objects=6,
-                       warmup_steps=4)
+    _register("cornerNetHourglass104s", "cornerNetHourglass104",
+              **SMALL_HOURGLASS)
+    config.update(arch="cornerNetHourglass104s",
+                  dims=list(SMALL_HOURGLASS["dimensions"]),
+                  prediction_dim=SMALL_HOURGLASS["prediction_dim"])
+    traffic.update(clip=128, batch=8, pool=32, rows=64, max_objects=6,
+                   warmup_steps=4)
     return bench, entry, files
 
 
-def run(name, system=None, seconds=1.0):
-    bench, entry, files = small(name)
+def run(system=None, seconds=1.0):
+    bench, entry, files = small()
     if system is control:
         system = control(files)
     result, numbers, _, record = run_cell(bench, entry, SEED, seconds, False,
@@ -85,31 +66,23 @@ def run(name, system=None, seconds=1.0):
     return result, numbers, record
 
 
-@pytest.mark.parametrize("name", [HG, DP])
-def test_cell_agrees_with_the_reference(name):
-    result, numbers, record = run(name)
+def test_cell_agrees_with_the_reference():
+    result, numbers, record = run()
     assert result["correct"], numbers
     # the first step to float32 rounding; the later losses and changes are
     # not held so close: a tenth of the small hourglass's gradient elements
     # lie within rounding of 0, and Adam moves each by about lr whatever
     # its sign
     assert numbers["first_loss_gap"] < 1e-4 and numbers["grad_gap"] < 1e-4
-    assert set(result["metrics"]) == ({"setup_s"} if name == DP else {
-        "train_throughput", "setup_s"})
+    assert numbers["head_gap"] < 1e-4
+    assert set(result["metrics"]) == {"train_throughput", "setup_s"}
     assert record["steps"] >= 1 and record["failed"] == 0
 
 
-# The published CornerNet's fp8 control is left out: on its 104 layers
-# the bfloat16 port lies as far from the float32 reference as the fp8
-# control does (PERF.md section 2), so its limits are set against the
-# planted faults
-@pytest.mark.parametrize("name,system", [
-    (DP, "control"), (DP, "unchanged"), (DP, "half_batch"),
-    (HG, "unchanged"), (HG, "half_batch")])
-def test_control_and_faults_are_not_correct(name, system):
-    driver = train_dp if name == DP else train
-    planted = control if system == "control" else driver.FAULTS[system]
-    result, numbers, _ = run(name, planted, seconds=0.5)
+@pytest.mark.parametrize("system", ["control", "unchanged", "half_batch"])
+def test_control_and_faults_are_not_correct(system):
+    planted = control if system == "control" else train.FAULTS[system]
+    result, numbers, _ = run(planted, seconds=0.5)
     assert not result["correct"], numbers
 
 
@@ -143,21 +116,11 @@ def test_rebuilt_legacy_targets_equal_the_port_transform():
     assert torch.equal(want["mask"], present)
 
 
-def test_a_failing_rank_ends_the_launch(tmp_path):
-    bench, entry, files = small(DP)
-    spec = {"config": files["config"], "traffic": files["traffic"],
-            "seed": SEED, "seconds": 1.0, "trace": False,
-            "system": "no such system", "devices": ["cpu"] * 4,
-            "backend": "gloo", "workdir": str(tmp_path)}
-    with pytest.raises(RuntimeError, match="failed"):
-        train_dp.launch(spec, str(tmp_path), 4, 120.0)
-
-
 def test_new_cell_files_and_metrics():
     bench = harness.benchmark()
     entry = harness.cell(bench, HG)
     files = harness.cell_files(bench, entry)
-    assert files["traffic"]["driver"] == "train" and files["limits"]
+    assert files["traffic"]["driver"] == "train_heads" and files["limits"]
     assert entry["chips"] == 1 and len(entry["why"]) <= 200
     ends = [m["name"] for m in harness.metrics_of(bench, HG, False)]
     assert set(ends) == {"train_throughput", "setup_s"}
@@ -165,8 +128,6 @@ def test_new_cell_files_and_metrics():
     assert layer == {"launches_per_step", "mfu.train", "kernel_roofline.train",
                      "device_idle_share.train", "step_python_idle_ms",
                      "model_python_idle_ms"}
-    dp = harness.cell_files(bench, DP_ENTRY)
-    assert dp["traffic"]["driver"] == "train_dp" and dp["limits"]
 
 
 def test_family_count_of_the_published_widths():
@@ -178,7 +139,7 @@ def test_family_count_of_the_published_widths():
     from portbench import flops
     from portbench.reference import model as reference_model
 
-    bench, entry, files = small(HG)
+    bench, entry, files = small()
     config = files["config"]
     model = reference_model.build(config)
     for p in model.parameters():
@@ -194,3 +155,36 @@ def test_family_count_of_the_published_widths():
         counter.get_total_flops()
     full = harness.cell_files(bench, entry)["config"]
     assert round(flops.forward_per_clip(full, 512) / 1e7) / 100 == 900.34
+
+
+def test_head_gap_reads_the_first_forward():
+    model = torch.nn.Linear(2, 2)
+    kept = {}
+
+    class Heads(torch.nn.Module):
+        def forward(self, x):
+            return [{"tl_heat": model(x)}, {"tl_heat": 2 * model(x)}]
+
+    heads = Heads()
+    train_heads.keep_first(heads, kept)
+    x = torch.ones(4, 2)
+    first = heads(x)[0]["tl_heat"].detach()
+    heads(2 * x)
+    assert torch.equal(kept["tl_heat"], first)
+    assert train_heads.head_gap(kept, {"tl_heat": first}) == 0
+    half = {"tl_heat": first[:2]}
+    assert train_heads.head_gap(half, {"tl_heat": first}) == 0
+    assert train_heads.head_gap({}, {"tl_heat": first}) == float("inf")
+    assert train_heads.head_gap({"tl_heat": 1.1 * first},
+                                {"tl_heat": first}) == pytest.approx(0.1)
+
+
+def test_witness_reads_the_reference_under_autocast():
+    """The witness's float32 and autocast runs start from one state: the
+    heads differ by bfloat16's rounding, not by more."""
+    from portbench import witness
+
+    _, _, files = small("bfloat16")
+    numbers = witness.readings(files, SEED, CPU)
+    assert 0 < numbers["head_gap"] < 0.5
+    assert numbers["first_loss_gap"] < 0.1 and numbers["leaves_left_out"] == 0
