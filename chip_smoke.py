@@ -177,7 +177,12 @@ Needs one CUDA card, ``nvcc`` (on PATH or under ``CUDA_HOME``, default
    each corner-pool kernel's four. It prints them, each BatchNorm and
    copy kernel's name and ms a step, and the transposes left
    (``python3 chip_smoke.py --layout`` runs this check alone, after the
-   build and the archive);
+   build and the archive). Last, ``check_feed`` runs resident bfloat16
+   steps of exp74 (30), cpool_best (12) and legacy_full (4) back to back
+   under ``torch.cuda.set_sync_debug_mode("error")``, so a synchronise
+   anywhere in a step fails, and the host must feed at least 0.9 of
+   exp74's steps while the card still runs the previous one
+   (``cuda_build.FEED``); ``--feed`` runs it alone;
 9. takes one float32 train step at full width on 2 clips, augmentation
    off, from the same weights on the card (the kernels) and on the CPU
    (the plain versions), for ``centerOffsetRes10``, ``cornerCPoolRes10``,
@@ -301,6 +306,7 @@ false. Everything it writes goes under ``build/`` in the checkout.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import faulthandler
@@ -2139,14 +2145,16 @@ def train_config(config: str, data_dir: str, work: str, metrics,
         "{:.4f} (last 10); [It] at {}: {} {}; train clips/s {:.1f} and "
         "{:.1f}, {:.1f} ms a step in the resumed run (validation, "
         "snapshots and cuDNN autotuning included); peak memory {} GB; "
-        "launches {} (expected {}); layout copies {}".format(
+        "launches {} (expected {}); layout copies {}; feed_ahead_share {} "
+        "and {}".format(
             arch, first["steps"], second["steps"], focal[:10].mean(),
             focal[-10:].mean(), TRAIN_ITERS, metrics[0],
             parse_metric_line(it_lines[-1], metrics[0]),
             first["clips_per_s"], second["clips_per_s"],
             second["seconds"] * 1e3 / max(second["steps"], 1), peak_gb,
             launches, expected, {k: v for k, v in second[
-                "layout_copies"].items() if v}))
+                "layout_copies"].items() if v}, first["feed_ahead_share"],
+            second["feed_ahead_share"]))
     if launches != expected:
         raise AssertionError("{}: the kernels launched {}, expected {} ({} "
                              "train steps, {} validation clips)".format(
@@ -2158,7 +2166,9 @@ def train_config(config: str, data_dir: str, work: str, metrics,
             "focal_first10": float(focal[:10].mean()),
             "focal_last10": float(focal[-10:].mean()),
             "it_line": it_lines[-1].strip(), "launches": launches,
-            "peak_memory_gb": peak_gb}
+            "peak_memory_gb": peak_gb,
+            "feed_ahead_share": [first["feed_ahead_share"],
+                                 second["feed_ahead_share"]]}
 
 
 LAYOUT_TRANSPOSES = ("nchwToNhwc", "nhwcToNchw")  # cuDNN's kernels' names
@@ -2185,25 +2195,31 @@ LAYOUT_COPIES = {
         **{name: 8 for name in cp.BWD_KERNEL_NAMES.values()}}}
 
 
+@contextlib.contextmanager
+def training_tf32():
+    """cuDNN's TF32 on, as a bfloat16 training process (the train CLI's,
+    the benchmark's) keeps it; main() turned it off for serving, and
+    without it the float32 heads' convolutions take NCHW engines: 9 more
+    transposes, 1.0 ms a step on exp74 (measured on an H100)."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
 def check_layout(data_dir: str, work: str, device: str = "cuda"):
     """One profiled bfloat16 step of exp74 and of cpool_best (phase 8's
     end): cuDNN's layout transposes only as far as its engines keep them
     (``LAYOUT_TRANSPOSE_RESIDUE``), BatchNorm's channels-last kernels,
     the expected boundary copies. Returns each configuration's copies,
     BatchNorm, copy and transpose kernels (ms a step)."""
-    # a bfloat16 training process's cuDNN (the train CLI's, the benchmark's)
-    # keeps TF32 on; main() turned it off for serving, and without it the
-    # float32 heads' convolutions take NCHW engines: 9 more transposes,
-    # 1.0 ms a step on exp74 (measured on an H100)
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = True
-    try:
+    with training_tf32():
         return {values["modelName"]: layout_step(values, device)
                 for values in (settings(config, data_dir, work,
                                         residency="device")
                                for config in (EXP74, CPOOL_BEST))}
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
 
 
 def layout_step(values, device: str):
@@ -2267,22 +2283,17 @@ def hourglass104_step(data_dir: str, work: str, device: str = "cuda"):
     values = settings(HOURGLASS104_FULL, data_dir, work, residency="device")
     cfg = Configuration()
     cfg.update_config(values)
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = True
-    try:
-        with training_backends(values["precision"]):
-            factory = NetworkFactory(cfg, device=device)
-            feed = iter(factory.dataset.epoch_local_indices(
-                cfg.batchSize, 0, local_train=factory._local_train))
-            for _ in range(3):
-                factory.train_resident(next(feed))
-            cuda_build.reset_launches()
+    with training_tf32(), training_backends(values["precision"]):
+        factory = NetworkFactory(cfg, device=device)
+        feed = iter(factory.dataset.epoch_local_indices(
+            cfg.batchSize, 0, local_train=factory._local_train))
+        for _ in range(3):
             factory.train_resident(next(feed))
-            copies = {k: v for k, v in cuda_build.LAYOUT_COPIES.items() if v}
-            launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
-            params = factory.parameter_count
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
+        cuda_build.reset_launches()
+        factory.train_resident(next(feed))
+        copies = {k: v for k, v in cuda_build.LAYOUT_COPIES.items() if v}
+        launches = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+        params = factory.parameter_count
     want = {gaussian.KERNEL_NAME: 2,
             **{name: 8 for name in cp.KERNEL_NAMES.values()},
             **{name: 4 for name in cp.BWD_KERNEL_NAMES.values()}}
@@ -2298,6 +2309,60 @@ def hourglass104_step(data_dir: str, work: str, device: str = "cuda"):
                              "copies {} a step".format(launches, copies))
     return {"parameters": params, "launches": launches,
             "layout_copies": copies}
+
+
+# steps of each configuration run back to back by check_feed after
+# FEED_WARM warm steps, and the least share of exp74's that must be fed
+# while the card still runs the previous step
+FEED_STEPS = {EXP74: 30, CPOOL_BEST: 12, LEGACY_FULL: 4}
+FEED_WARM, FEED_AHEAD_MIN = 3, 0.9
+
+
+def check_feed(data_dir: str, work: str, device: str = "cuda"):
+    """Resident bfloat16 steps of exp74, cpool_best and legacy_full
+    (``FEED_STEPS``) back to back, untraced, under
+    ``torch.cuda.set_sync_debug_mode("error")``: a synchronise anywhere
+    in a step raises. The host must feed at least ``FEED_AHEAD_MIN`` of
+    exp74's steps while the card still runs the previous one
+    (``cuda_build.FEED``; the first step follows a synchronise, so it
+    cannot). Returns each configuration's ms a step and share."""
+    out = {}
+    for config, steps in FEED_STEPS.items():
+        values = settings(config, data_dir, work, residency="device")
+        cfg = Configuration()
+        cfg.update_config(values)
+        with training_tf32(), training_backends(values["precision"]):
+            factory = NetworkFactory(cfg, device=device)
+            feed = resident_feed(factory, FEED_WARM + steps)
+            for idx in feed[:FEED_WARM]:
+                factory.train_resident(idx)
+            torch.cuda.synchronize()
+            cuda_build.reset_launches()
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for idx in feed[FEED_WARM:]:
+                    factory.train_resident(idx)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / steps
+        fed = dict(cuda_build.FEED)
+        arch = values["modelName"]
+        share = fed.get("ahead", 0) / max(fed.get("steps", 0), 1)
+        log("{}: {} bf16 steps with no synchronise, {:.2f} ms a step, fed "
+            "ahead of the card {} of {} ({:.3f})".format(
+                arch, steps, ms, fed.get("ahead", 0), fed.get("steps", 0),
+                share))
+        if fed.get("steps") != steps:
+            raise AssertionError("{}: the feed counted {} of {} steps".format(
+                arch, fed.get("steps"), steps))
+        if config == EXP74 and share < FEED_AHEAD_MIN:
+            raise AssertionError("{}: the host fed {:.3f} of the steps ahead "
+                                 "of the card, under {}".format(
+                                     arch, share, FEED_AHEAD_MIN))
+        out[arch] = {"steps": steps, "step_ms": ms, "feed_ahead_share": share}
+    return out
 
 
 # -- 9. one float32 step, card against CPU ------------------------------------------
@@ -2881,6 +2946,19 @@ def one_step(values, device: str, nudge: float = 0.0):
             "launches": dict(cuda_build.LAUNCHES)}
 
 
+def resident_feed(factory, steps: int):
+    """The first ``steps`` index vectors of the factory's resident
+    epochs, as many epochs as that takes."""
+    feed, epoch = [], 0
+    while len(feed) < steps:
+        feed += list(factory.dataset.epoch_local_indices(
+            factory.config.batchSize, epoch,
+            num_shards=factory.mesh.size("data") if factory.mesh else 1,
+            local_train=factory._local_train))
+        epoch += 1
+    return feed[:steps]
+
+
 def timed_steps(values, device: str, warm: int = 3, steps: int = TIMED_STEPS,
                 overlap: bool = False):
     """``{"step_ms": ...}``: ms a step of ``values`` (residency device)
@@ -2892,12 +2970,7 @@ def timed_steps(values, device: str, warm: int = 3, steps: int = TIMED_STEPS,
     with training_backends(values.get("precision", "float32")):
         factory = NetworkFactory(cfg, device=device)
         cards = factory.mesh.devices if factory.mesh else [factory.device]
-        batch, epoch, feed = cfg.batchSize, 0, []
-        while len(feed) < warm + steps + 1:
-            feed += list(factory.dataset.epoch_local_indices(
-                batch, epoch, num_shards=factory.mesh.size("data")
-                if factory.mesh else 1, local_train=factory._local_train))
-            epoch += 1
+        feed = resident_feed(factory, warm + steps + 1)
         for idx in feed[:warm]:
             factory.train_resident(idx)
         sync(cards)
@@ -3895,9 +3968,10 @@ def cards_end(out, gpu_line: str, t_start: float) -> int:
     return 0
 
 
-def layout_main() -> int:
-    """``--layout``: the kernels built and the synthetic archive written,
-    then phase 8's ``check_layout`` alone."""
+def check_main(name: str, check) -> int:
+    """``--layout`` and ``--feed``: the kernels built and the synthetic
+    archive written, then phase 8's ``check_layout`` or ``check_feed``
+    alone, its result under ``name``."""
     gpu_line = run(["nvidia-smi", "--query-gpu=name,power.limit",
                     "--format=csv,noheader"])
     log("card: {} | torch {}".format(gpu_line, torch.__version__))
@@ -3909,8 +3983,8 @@ def layout_main() -> int:
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
         list(pool.map(cuda_build.build, KERNEL_SOURCES))
     finish_archive(writer, archive)
-    layout = check_layout(data_dir, os.path.join(build_dir, "layout"))
-    log(json.dumps({"ok": True, "layout": layout, "card": gpu_line}))
+    result = check(data_dir, os.path.join(build_dir, name))
+    log(json.dumps({"ok": True, name: result, "card": gpu_line}))
     return 0
 
 
@@ -4061,6 +4135,7 @@ def main() -> int:
         layout = check_layout(data_dir, os.path.join(build_dir, "layout"))
         layout["cornerNetHourglass104"] = hourglass104_step(
             data_dir, os.path.join(build_dir, "hourglass104_step"))
+        feed = check_feed(data_dir, os.path.join(build_dir, "feed"))
         t0 = mark("training", t0)
         # 9. one float32 step on the card and on the CPU, for each model
         steps = [step_card_vs_cpu(EXP74, os.path.join(build_dir, "step_exp74")),
@@ -4187,7 +4262,7 @@ def main() -> int:
         log(json.dumps({"serving": served, "streaming": streamed,
                         "bundles": [b[0] for b in bundles],
                         "test_checkpoint": test_c, "training": trained,
-                        "layout": layout,
+                        "layout": layout, "feed": feed,
                         "step_card_vs_cpu": steps, "preprocess": preprocessed,
                         "train_preprocessed": pre_trained, "psroi": psroi,
                         "grayscale": gray, "build_cache": build_cache,
@@ -4217,9 +4292,11 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--cards"]:
         sys.exit(cards_main())
     if sys.argv[1:] == ["--layout"]:
-        sys.exit(layout_main())
+        sys.exit(check_main("layout", check_layout))
     if sys.argv[1:] == ["--hourglass104"]:
         sys.exit(hourglass104_main())
+    if sys.argv[1:] == ["--feed"]:
+        sys.exit(check_main("feed", check_feed))
     if sys.argv[1:] == ["--cards", "nodes"]:
         sys.exit(cards_main(only_nodes=True))
     sys.exit(main())

@@ -24,6 +24,10 @@ where it launches its kernel, and nowhere else, so a run can show that
 its path went through the kernels. ``LAYOUT_COPIES`` counts, by the same
 names, the tensors converted between a channels-last caller and a
 kernel's NCHW layout (``ops/layout``); it stays 0 on an NCHW path.
+``FEED`` counts the resident steps whose index vector went to a card
+(``steps``) and those of them fed while the card was still running the
+previous step's update (``ahead``, ``train/factory.NetworkFactory.
+train_resident``); it stays empty on the CPU.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ HOST_LIBS = ("-l:libz.so.1", "-lpthread")
 
 LAUNCHES: Dict[str, int] = {}
 LAYOUT_COPIES: Dict[str, int] = {}
+FEED: Dict[str, int] = {}
 
 _libraries: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -74,8 +79,8 @@ def build_root() -> Path:
 
 
 def reset_launches() -> None:
-    """Zero ``LAUNCHES`` and ``LAYOUT_COPIES``."""
-    for counts in (LAUNCHES, LAYOUT_COPIES):
+    """Zero ``LAUNCHES``, ``LAYOUT_COPIES`` and ``FEED``."""
+    for counts in (LAUNCHES, LAYOUT_COPIES, FEED):
         for name in counts:
             counts[name] = 0
 
@@ -86,6 +91,11 @@ def count_launch(name: str) -> None:
 
 def count_layout_copy(name: str) -> None:
     LAYOUT_COPIES[name] = LAYOUT_COPIES.get(name, 0) + 1
+
+
+def count_feed(ahead: bool) -> None:
+    FEED["steps"] = FEED.get("steps", 0) + 1
+    FEED["ahead"] = FEED.get("ahead", 0) + int(ahead)
 
 
 def nvcc_path() -> str:

@@ -54,7 +54,10 @@ class ProgressLine:
     ``SCD_PROGRESS=0``. The loss value is only printed when the caller
     passes one — the training loop keeps per-step losses ON DEVICE and
     only hands over a float at its sync points, so the bar never forces a
-    device round-trip.
+    device round-trip. ``ips`` is the caller's; the trainer's times the
+    host's issue of steps, which on a card runs a step or two ahead of the
+    card (``NetworkFactory.train_resident``), so over more than a few
+    steps it reads the card's rate.
     """
 
     def __init__(self, enabled: Optional[bool] = None) -> None:
@@ -106,7 +109,9 @@ class StepTelemetry:
     ``step``, ``t`` (wall seconds since the telemetry began) and ``ips``,
     the steps a second since the previous row (the first row's since the
     telemetry began at ``first_step``), so that only the first row holds
-    warm-up and autotuning.
+    warm-up and autotuning. The rows are taken when the host has issued a
+    step, which on a card may run a step or two ahead of the card; over a
+    row's ``every`` steps ``ips`` still reads the card's rate.
     """
 
     def __init__(self, path: Optional[str] = None, every: int = 50,

@@ -17,7 +17,8 @@ the configuration) writes overlay PNGs of the last trained batch to
 ``dirResult/debug.{trainName}/`` at every validation boundary. The last
 line of the standard output is the run's summary as one JSON object
 (``NetworkFactory.begin_training``: steps, seconds, clips/s, the last
-iteration and the kernel launches of the run).
+iteration, the kernel launches of the run and the share of its resident
+steps fed ahead of the card).
 
 Started by ``torchrun``, each rank joins the process group
 (``parallel/mesh.init_distributed``: NCCL on cards, gloo on the CPU, or

@@ -347,6 +347,11 @@ class NetworkFactory:
         self._aug_seed = seed + 1
         self._aug_step = int(cfg.currentIteration)
         self._last_batch: Optional[Tuple[torch.Tensor, List]] = None
+        # on a card, two events taking turns after each step's update:
+        # the next feed asks the last one whether the card is still busy
+        self._step_done = (torch.cuda.Event(), torch.cuda.Event()) \
+            if self.device.type == "cuda" else None
+        self._steps_done = 0
         self._stop_requested = False
         self.preempted = False
         self._setup_residency()
@@ -490,6 +495,10 @@ class NetworkFactory:
                 sync_gradients(self.model.parameters(), self.data_group)
         with span("scd.step.optimizer"):
             self.optimizer.step()
+        if self._step_done is not None:
+            self._step_done[self._steps_done % 2].record(
+                torch.cuda.current_stream(self.device))
+            self._steps_done += 1
         self.updates += 1
         self._last_batch = (xs, ys)
         if self.data_group is None:
@@ -518,16 +527,36 @@ class NetworkFactory:
         return self._step(*rows, draws)
 
     def train_resident(self, idx: np.ndarray, draws: Optional[Draws] = None):
-        """One step on the resident rows ``idx`` (on a data axis the
-        global index vector, shard-major, of which this rank takes its
-        block of local indices)."""
+        """One step on the resident rows ``idx``, int32 or int64, numpy
+        or a tensor (on a data axis the global index vector, shard-major,
+        of which this rank takes its block of local indices). On a card
+        the host never waits for it here (:meth:`_feed_index`), so it
+        queues this step while the card still runs the previous one."""
         with span("scd.step.feed"):
             if self.mesh is not None:
                 idx = shard_rows(self.mesh, np.asarray(idx))
-            idx = torch.as_tensor(idx).to(self.device)
+            idx = self._feed_index(idx)
             rows = [t.index_select(0, idx) for t in (
                 self._ds_samples, self._ds_locs, self._ds_counts)]
         return self._step(*rows, draws)
+
+    def _feed_index(self, idx) -> torch.Tensor:
+        """``idx`` on ``self.device``. A host vector bound for a card is
+        pinned and copied without blocking: a pageable copy ends in a
+        synchronise, and the caching host allocator keeps the pinned
+        block until the copy has read it. Each such step is counted in
+        ``core/cuda_build.FEED``, ``ahead`` when the previous step's
+        update (``_step_done``) has not finished on the card. On the CPU,
+        or for a tensor already on a card, a plain copy."""
+        if self._step_done is None or (isinstance(idx, torch.Tensor)
+                                       and idx.is_cuda):
+            return torch.as_tensor(idx).to(self.device)
+        host = torch.as_tensor(np.ascontiguousarray(idx)).pin_memory()
+        idx = host.to(self.device, non_blocking=True)
+        if self._steps_done:
+            cuda_build.count_feed(
+                not self._step_done[(self._steps_done - 1) % 2].query())
+        return idx
 
     # ---- the resident dataset ----------------------------------------------
 
@@ -709,8 +738,11 @@ class NetworkFactory:
         Returns a summary: steps run, their wall seconds (validation and
         checkpoints included) and clips per second over them, the last
         iteration reached, the kernel launches the run made
-        (``core/cuda_build.LAUNCHES``, by kernel name) and the tensors it
-        converted at the kernels' NCHW boundary (``LAYOUT_COPIES``)."""
+        (``core/cuda_build.LAUNCHES``, by kernel name), the tensors it
+        converted at the kernels' NCHW boundary (``LAYOUT_COPIES``) and
+        ``feed_ahead_share``, the share of its resident steps on a card
+        fed before the card had finished the previous one (``FEED``;
+        None on the CPU or streamed from the host)."""
         cfg = self.config
         if cfg.currentIteration > 0:
             self.load_parameters()
@@ -722,6 +754,7 @@ class NetworkFactory:
 
         launches_before = dict(cuda_build.LAUNCHES)
         copies_before = dict(cuda_build.LAYOUT_COPIES)
+        feed_before = dict(cuda_build.FEED)
         it = cfg.currentIteration
         self._aug_step = int(it)
         total = cfg.totalIterations
@@ -911,6 +944,8 @@ class NetworkFactory:
                 with open(os.path.join(cfg.dirResult, "evals.{}.txt".format(
                         cfg.trainName)), "w") as f:
                     f.writelines(eval_lines)
+        fed = [cuda_build.FEED.get(k, 0) - feed_before.get(k, 0)
+               for k in ("steps", "ahead")]
         return {"steps": steps_this_run, "seconds": seconds,
                 "clips_per_s": steps_this_run * cfg.batchSize / seconds
                 if seconds > 0 else 0.0,
@@ -919,4 +954,5 @@ class NetworkFactory:
                              for name, count in cuda_build.LAUNCHES.items()},
                 "layout_copies": {
                     name: count - copies_before.get(name, 0)
-                    for name, count in cuda_build.LAYOUT_COPIES.items()}}
+                    for name, count in cuda_build.LAYOUT_COPIES.items()},
+                "feed_ahead_share": fed[1] / fed[0] if fed[0] else None}
