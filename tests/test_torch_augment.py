@@ -25,6 +25,8 @@ import torch
 from scd_resnet_tpu.ops import augment as jaug
 from scd_resnet_tpu_torch.ops import augment as taug
 
+import torch_port_common  # noqa: F401  (the CPU-thread rule)
+
 ANGLES = np.asarray(np.random.default_rng(5).uniform(-15, 15, 6), np.float32)
 
 

@@ -13,6 +13,8 @@ import jax.numpy as jnp
 from scd_resnet_tpu.core.torch_convert import convert_center_net_residual
 from scd_resnet_tpu.models.center_net_offset import CenterNetResidual
 
+import torch_port_common  # noqa: F401  (the CPU-thread rule)
+
 DIMS = (16, 16, 32, 64, 128, 64, 64, 64)
 HIDDEN = 32
 

@@ -84,17 +84,6 @@ JAX_GRAD_TOL = 1e-4  # the first step's gradients against JAX's, of G
 ROUNDING = 1e-3  # a gradient's rounding level, as a share of G
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for the module: the shapes are small, and the
-    suite runs six workers on the machine's cores, where each torch
-    process's default of a thread a core oversubscribes them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _settings(root, **extra):
     settings = {
         "datasetName": "scdx16p100", "modelName": ARCH, "trainName": "ddp",

@@ -20,6 +20,8 @@ from scd_resnet_tpu_torch.data.pipeline import draw
 from scd_resnet_tpu_torch.data.synthetic import make_archive
 from scd_resnet_tpu_torch.train.factory import NetworkFactory
 
+import torch_port_common  # noqa: F401  (the CPU-thread rule)
+
 BATCH = 4
 
 

@@ -37,6 +37,8 @@ from scd_resnet_tpu_torch.ops.image import (
     grayscale_inference_u8_plain,
 )
 
+import torch_port_common  # noqa: F401  (the CPU-thread rule)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIDE = 64
 # objects a clip holds: none, one, MAXTAGLEN, one more (dropped)

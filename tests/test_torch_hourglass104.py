@@ -51,6 +51,8 @@ from scd_resnet_tpu_torch.models.corner_net_legacy import (
 from scd_resnet_tpu_torch.train.registry import get_model_profile
 from tests import plain_corner_net as plain
 
+import torch_port_common  # noqa: F401  (the CPU-thread rule)
+
 GEOMETRY = {"iterations": 5, "stacks": 2,
             "dimensions": (8, 8, 12, 12, 12, 16),
             "modules": HOURGLASS104["modules"], "prediction_dim": 16}
@@ -106,15 +108,6 @@ def loc_records(seed: int = 7):
     locs[:, -1, 0:4] = torch.tensor([HEAT - 2.0, 2.0, 2.0, 0.0])
     present = torch.tensor([[True] * OBJECTS, [True] * (OBJECTS - 1) + [False]])
     return locs, present
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread: the suite's workers share the host's cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

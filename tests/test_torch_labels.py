@@ -27,6 +27,8 @@ from test_label_server import (  # noqa: F401
     test_save_reports_validation_problems,
 )
 
+import torch_port_common  # noqa: F401  (the CPU-thread rule)
+
 
 def _rows(seed: int, n: int = 12):
     """Seeded marker fields: positions with many decimals, some

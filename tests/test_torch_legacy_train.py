@@ -24,6 +24,8 @@ from test_torch_hourglass_train import (  # noqa: F401  (module fixtures)
     replay_steps,
 )
 
+import torch_port_common  # noqa: F401  (the CPU-thread rule)
+
 
 @pytest.fixture(scope="module")
 def legacy_steps(archive, patch_registries, jax_runs, tmp_path_factory):

@@ -38,17 +38,6 @@ from torch_port_common import calibrated_variables, port_model
 SLIDE = synthetic_slide(600, 700, seed=21)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for the module: the shapes are small, and the
-    suite runs six workers on the machine's cores, where each torch
-    process's default of a thread a core oversubscribes them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 class PixelRows:
     """A fake centerOffset wrapper: rows (10, B, 100) from two pixels of
     each clip, each clip's rows independent of its batch; it records the

@@ -17,6 +17,7 @@ from scd_resnet_tpu_torch.parallel.mesh import node_layout
 from scd_resnet_tpu_torch.train.factory import NetworkFactory
 
 from torch_dist_worker import run_ranks
+import torch_port_common  # noqa: F401  (the CPU-thread rule)
 
 BATCH = 4
 

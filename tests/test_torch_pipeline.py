@@ -66,17 +66,6 @@ MICRO, MB = 3, 2
 CPU = torch.device("cpu")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for the module: the shapes are small, and the
-    suite runs six workers on the machine's cores, where each torch
-    process's default of a thread a core oversubscribes them."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
-
 def _close(got, want, tol, what):
     want = np.asarray(want)
     scale = float(np.abs(want).max())

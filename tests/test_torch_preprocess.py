@@ -39,6 +39,8 @@ from scd_resnet_tpu_torch.data.archive import read_archive
 from scd_resnet_tpu_torch.ops.augment import rotation_tolerance
 from scd_resnet_tpu_torch.ops.image import grayscale_preprocess
 
+import torch_port_common  # noqa: F401  (the CPU-thread rule)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE, MARGIN = 64, [28, 4, 28, 4]
 LOC_TOL = 1e-4

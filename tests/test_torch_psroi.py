@@ -33,6 +33,8 @@ from scd_resnet_tpu_torch.models import pooling as tpool
 from scd_resnet_tpu_torch.models.deformable import DCNPooling
 from scd_resnet_tpu_torch.ops.dcn import deform_psroi_pooling
 
+import torch_port_common  # noqa: F401  (the CPU-thread rule)
+
 GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "goldens", "native_goldens.npz")
 

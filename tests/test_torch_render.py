@@ -43,6 +43,8 @@ from scd_resnet_tpu_torch.ops.radius import (
     corner_threshold_radius,
 )
 
+import torch_port_common  # noqa: F401  (the CPU-thread rule)
+
 
 def _batch(seed: int, size: int, clips: int = 4, k: int = 30):
     """Raw clips, loc records and counts of ``clips`` clips with

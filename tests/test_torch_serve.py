@@ -34,6 +34,8 @@ from scd_resnet_tpu_torch.infer.wrapper import make_wrapper
 from scd_resnet_tpu_torch.models.center_net_offset import CenterNetResidual
 from scd_resnet_tpu_torch import serve
 
+import torch_port_common  # noqa: F401  (the CPU-thread rule)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = (8, 8, 16, 32, 64, 32, 32, 32)
 

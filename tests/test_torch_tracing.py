@@ -29,6 +29,8 @@ from scd_resnet_tpu_torch.infer.synthetic import seeded_model, synthetic_slide
 from scd_resnet_tpu_torch.infer.wrapper import make_wrapper
 from scd_resnet_tpu_torch.train.factory import NetworkFactory
 
+import torch_port_common  # noqa: F401  (the CPU-thread rule)
+
 ARCH = "centerOffsetRes10q"
 WIDTH, HEIGHT = 700, 600
 BAND_CLIPS = 2  # a band of one column of two clips: two bands a slide

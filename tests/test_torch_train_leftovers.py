@@ -31,6 +31,8 @@ from scd_resnet_tpu_torch.train import __main__ as train_cli
 from scd_resnet_tpu_torch.train import factory as factory_mod
 from scd_resnet_tpu_torch.train import registry
 
+import torch_port_common  # noqa: F401  (the CPU-thread rule)
+
 ARCHS = {"center": "centerOffsetRes10q", "corner": "cornerCPoolRes10q",
          "legacy": "cornerLegacyHourglassq"}
 

@@ -232,6 +232,7 @@ def main(spec: str, work: str) -> None:
 
     spec = torch.load(spec, weights_only=False)
     rank, _, _ = init_distributed("cpu", timeout_s=spec["timeout_s"])
+    # one thread a rank: a test's ranks share the cores of one test worker
     torch.set_num_threads(1)
     results = {job["name"]: _skip_all_reduce(job, rank, work)
                if job.get("kind") == "skip" else _run_job(job, rank)

@@ -17,15 +17,30 @@ serving threshold: a few dozen distinct peaks per clip pass the
 threshold, well inside top-100, with score gaps far above float32
 rounding, so both frameworks rank them alike. (Plain N(0, 1) kernels on
 these O(1) features saturate the sigmoid to exactly 1.0, and the ties
-order differently under ``torch.topk`` and ``lax.top_k``.)"""
+order differently under ``torch.topk`` and ``lax.top_k``.)
+
+Importing this module sets the port tests' one CPU-thread rule: torch
+takes this process's share of the cores (``os.cpu_count()`` over
+pytest-xdist's worker count), and child processes get the same through
+``OMP_NUM_THREADS`` unless the environment already sets it. Torch's
+default of a thread a core, in each of the suite's workers side by side,
+oversubscribes the cores many times over, while a file run alone keeps
+every core."""
 
 from __future__ import annotations
+
+import os
 
 import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+
+THREADS = max(1, (os.cpu_count() or 1)
+              // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
+torch.set_num_threads(THREADS)
+os.environ.setdefault("OMP_NUM_THREADS", str(THREADS))
 
 QUARTER = (16, 16, 32, 64, 128, 64, 64, 64)
 # the stacked hourglasses' small test geometry, as keyword arguments of
